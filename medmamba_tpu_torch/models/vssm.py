@@ -1,0 +1,386 @@
+"""MedMamba VSSM in PyTorch (NHWC at the public interface).
+
+Counterpart of ``medmamba_tpu/models/vssm.py``. Submodule and parameter names
+follow the reference MedMamba state dict, so a reference ``model_state_dict``
+loads with ``strict=True``:
+
+* ``layers.{i}.blocks.{j}.self_attention`` is SS2D, with raw parameters
+  ``x_proj_weight``, ``dt_projs_weight``, ``dt_projs_bias``, ``A_logs`` and
+  ``Ds``;
+* ``layers.{i}.blocks.{j}.conv33conv33conv11`` is the conv branch, an
+  ``nn.Sequential`` of BN(0) conv3x3(1) BN(2) ReLU conv3x3(4) BN(5) ReLU
+  conv1x1(7) ReLU.
+
+Activations stay NHWC between blocks as in the JAX package; convolutions run
+on NCHW views. The model is float32 throughout, and the scan core is float32
+as in the reference.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from medmamba_tpu_torch.ops.cross_scan import cross_merge_fr, cross_scan_fwd
+from medmamba_tpu_torch.ops.selective_scan import selective_scan
+
+# ---------------------------------------------------------------------------
+# Initializers (the distributions of medmamba_tpu/models/vssm.py:46-94), all
+# drawn from an explicit generator
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def trunc_normal_02(w: torch.Tensor, gen: torch.Generator) -> None:
+    """flax ``truncated_normal(stddev=0.02)``: a standard normal cut at +/-2,
+    scaled so that the cut distribution has standard deviation 0.02."""
+    lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
+        (1 + math.erf(2 / math.sqrt(2))) / 2
+    w.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    w.erfinv_().mul_(math.sqrt(2) * 0.02 / 0.87962566103423978)
+
+
+@torch.no_grad()
+def kaiming_fan_out(w: torch.Tensor, gen: torch.Generator) -> None:
+    """variance_scaling(2, "fan_out", "normal") of an OIHW conv weight."""
+    fan_out = w.shape[0] * w[0, 0].numel()
+    w.normal_(0.0, math.sqrt(2.0 / fan_out), generator=gen)
+
+
+@torch.no_grad()
+def uniform_sym(w: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    w.uniform_(-bound, bound, generator=gen)
+
+
+@torch.no_grad()
+def dt_bias_init(w: torch.Tensor, gen: torch.Generator, dt_min: float = 1e-3,
+                 dt_max: float = 0.1, floor: float = 1e-4) -> None:
+    """Inverse softplus of a log-uniform dt sample."""
+    u = torch.rand(w.shape, generator=gen)
+    dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min))
+                   + math.log(dt_min)).clamp_min(floor)
+    w.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+# ---------------------------------------------------------------------------
+# Layers
+# ---------------------------------------------------------------------------
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; identity in eval mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.rand(shape, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over axis 1 (NCHW) with an optional per-sample validity mask.
+
+    Eval mode normalises with the running statistics. Train mode uses the
+    batch statistics of the rows whose mask is true (padded rows of a final
+    partial batch do not bias them) and updates the running statistics as
+    ``flax.linen.BatchNorm(momentum=0.9)`` does: the running variance is the
+    biased batch variance. Parameter and buffer names are ``nn.BatchNorm2d``'s.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.tensor(0, dtype=torch.long))
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            red = [0] + list(range(2, x.ndim))
+            if mask is None:
+                mean = x.mean(red)
+                var = (x * x).mean(red) - mean * mean
+            else:
+                w = mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                per_sample = float(math.prod(x.shape[2:]))
+                cnt = torch.clamp_min(w.sum() * per_sample, 1.0)
+                mean = (x * w).sum(red) / cnt
+                var = (x * x * w).sum(red) / cnt - mean * mean
+            var = var.clamp_min(0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+                self.num_batches_tracked.add_(1)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * inv.reshape(shape) \
+            + self.bias.reshape(shape)
+
+
+class PatchEmbed2D(nn.Module):
+    """4x4 non-overlapping conv patchify + optional LayerNorm."""
+
+    def __init__(self, patch_size: int = 4, embed_dim: int = 96,
+                 patch_norm: bool = True, *, generator: torch.Generator):
+        super().__init__()
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        kaiming_fan_out(self.proj.weight, generator)
+        nn.init.zeros_(self.proj.bias)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C_in)
+        x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return self.norm(x) if self.norm is not None else x
+
+
+class PatchMerging2D(nn.Module):
+    """2x downsample: 2x2 gather -> LN(4C) -> Linear(2C, no bias).
+
+    Gather order (even/even, odd/even, even/odd, odd/odd); an odd size is
+    cropped to its even part."""
+
+    def __init__(self, dim: int, *, generator: torch.Generator):
+        super().__init__()
+        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        trunc_normal_02(self.reduction.weight, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
+        hh, ww = x.shape[1] // 2, x.shape[2] // 2
+        x = torch.cat([x[:, 0::2, 0::2][:, :hh, :ww],
+                       x[:, 1::2, 0::2][:, :hh, :ww],
+                       x[:, 0::2, 1::2][:, :hh, :ww],
+                       x[:, 1::2, 1::2][:, :hh, :ww]], dim=-1)
+        return self.reduction(self.norm(x))
+
+
+class SS2D(nn.Module):
+    """2D selective scan module.
+
+    in_proj -> (x, z) -> depthwise 3x3 conv + SiLU -> CrossScan -> per-direction
+    dt/B/C projections -> selective scan -> CrossMerge -> LayerNorm -> gate
+    with silu(z) -> out_proj. Directions 2/3 are reversals of 0/1, so the scan
+    runs twice on the same (B, 2, D, L) tensor: forward, then in reverse.
+
+    ``scan_impl``: "auto" (the CUDA kernel on a CUDA tensor, the plain version
+    on a CPU tensor) or "ref" (the plain version on any device).
+    ``scan_tau`` is accepted for the JAX package's signature and does nothing:
+    both scans here are exact.
+    """
+
+    def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
+                 expand: int = 2, dt_rank: Optional[int] = None,
+                 dropout: float = 0.0, conv_bias: bool = True,
+                 bias: bool = False, scan_impl: str = "auto", scan_tau=None,
+                 *, generator: torch.Generator):
+        super().__init__()
+        self.d_state = d_state
+        self.d_inner = d_inner = expand * d_model
+        self.dt_rank = dt_rank = dt_rank or math.ceil(d_model / 16)
+        self.scan_impl = scan_impl
+        k, n = 4, d_state
+        gen = generator
+
+        self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=bias)
+        trunc_normal_02(self.in_proj.weight, gen)
+        self.conv2d = nn.Conv2d(d_inner, d_inner, d_conv,
+                                padding=(d_conv - 1) // 2, groups=d_inner,
+                                bias=conv_bias)
+        kaiming_fan_out(self.conv2d.weight, gen)
+        self.x_proj_weight = nn.Parameter(torch.empty(k, dt_rank + 2 * n,
+                                                      d_inner))
+        uniform_sym(self.x_proj_weight, d_inner ** -0.5, gen)
+        self.dt_projs_weight = nn.Parameter(torch.empty(k, d_inner, dt_rank))
+        uniform_sym(self.dt_projs_weight, dt_rank ** -0.5, gen)
+        self.dt_projs_bias = nn.Parameter(torch.empty(k, d_inner))
+        dt_bias_init(self.dt_projs_bias, gen)
+        self.A_logs = nn.Parameter(
+            torch.log(torch.arange(1, n + 1, dtype=torch.float32))
+            .repeat(k * d_inner, 1))
+        self.Ds = nn.Parameter(torch.ones(k * d_inner))
+        self.out_norm = nn.LayerNorm(d_inner, eps=1e-5)
+        self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
+        trunc_normal_02(self.out_proj.weight, gen)
+        if bias:
+            nn.init.zeros_(self.in_proj.bias)
+            nn.init.zeros_(self.out_proj.bias)
+        if conv_bias:
+            nn.init.zeros_(self.conv2d.bias)
+        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, d_model)
+        b, h, w, _ = x.shape
+        l = h * w
+        d_inner, n, r = self.d_inner, self.d_state, self.dt_rank
+
+        x, z = self.in_proj(x).chunk(2, dim=-1)
+        x = F.silu(self.conv2d(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
+        xs = cross_scan_fwd(x)                              # (B, 2, D, L)
+
+        # weights are laid out [pair j][direction k]: pair 0 (directions 0, 1)
+        # scans forward, pair 1 (directions 2, 3) the same data in reverse
+        wp4 = self.x_proj_weight.reshape(2, 2, r + 2 * n, d_inner)
+        x_dbl = torch.einsum("bkdl,jkcd->bjkcl", xs, wp4)
+        dts4, Bs4, Cs4 = torch.split(x_dbl, [r, n, n], dim=3)
+        wdt4 = self.dt_projs_weight.reshape(2, 2, d_inner, r)
+        dts4 = torch.einsum("bjkrl,jkdr->bjkdl", dts4, wdt4)
+
+        u = xs.reshape(b, 2 * d_inner, l)
+        As = -torch.exp(self.A_logs.float()).reshape(4, d_inner, n)
+        Ds = self.Ds.float().reshape(4, d_inner)
+        bias = self.dt_projs_bias.float()
+
+        def scan_pair(j: int, rev: bool) -> torch.Tensor:
+            ks = slice(2 * j, 2 * j + 2)
+            y = selective_scan(
+                u, dts4[:, j].reshape(b, 2 * d_inner, l),
+                As[ks].reshape(2 * d_inner, n),
+                Bs4[:, j].contiguous(), Cs4[:, j].contiguous(),
+                Ds[ks].reshape(-1), delta_bias=bias[ks].reshape(-1),
+                delta_softplus=True, impl=self.scan_impl,
+                reverse_dirs=(rev, rev))
+            return y.reshape(b, 2, d_inner, l)
+
+        y = cross_merge_fr(scan_pair(0, False), scan_pair(1, True), h, w)
+        y = self.out_norm(y.transpose(1, 2).reshape(b, h, w, d_inner))
+        out = self.out_proj(y * F.silu(z))
+        return self.dropout(out) if self.dropout is not None else out
+
+
+class SSConvSSM(nn.Module):
+    """The SS-Conv-SSM hybrid block.
+
+    Channel-split halves: right half -> LN -> SS2D -> DropPath; left half ->
+    BN-Conv3x3-BN-ReLU-Conv3x3-BN-ReLU-Conv1x1-ReLU; concat +
+    channel_shuffle(2) (an interleave of the halves) -> residual add.
+    """
+
+    def __init__(self, hidden_dim: int, drop_path: float = 0.0,
+                 attn_drop_rate: float = 0.0, d_state: int = 16,
+                 scan_impl: str = "auto", *, generator: torch.Generator):
+        super().__init__()
+        half = hidden_dim // 2
+        self.ln_1 = nn.LayerNorm(half, eps=1e-5)
+        self.self_attention = SS2D(half, d_state=d_state,
+                                   dropout=attn_drop_rate,
+                                   scan_impl=scan_impl, generator=generator)
+        self.drop_path = DropPath(drop_path)
+        convs = [nn.Conv2d(half, half, 3, padding=1),
+                 nn.Conv2d(half, half, 3, padding=1),
+                 nn.Conv2d(half, half, 1)]
+        for c in convs:
+            kaiming_fan_out(c.weight, generator)
+            nn.init.zeros_(c.bias)
+        self.conv33conv33conv11 = nn.Sequential(
+            MaskedBatchNorm(half), convs[0], MaskedBatchNorm(half), nn.ReLU(),
+            convs[1], MaskedBatchNorm(half), nn.ReLU(), convs[2], nn.ReLU())
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        left, right = x.chunk(2, dim=-1)
+        r = self.drop_path(self.self_attention(self.ln_1(right)))
+        c = left.permute(0, 3, 1, 2)
+        for layer in self.conv33conv33conv11:
+            c = layer(c, mask) if isinstance(layer, MaskedBatchNorm) \
+                else layer(c)
+        c = c.permute(0, 2, 3, 1)
+        # concat + channel_shuffle(groups=2) == out[..., 2j] = c[..., j],
+        # out[..., 2j + 1] = r[..., j]
+        out = torch.stack([c, r], dim=-1).reshape(x.shape)
+        return out + x
+
+
+class VSSLayer(nn.Module):
+    """One stage: depth x SSConvSSM (+ optional PatchMerging2D)."""
+
+    def __init__(self, dim: int, depth: int, d_state: int = 16,
+                 attn_drop: float = 0.0, drop_path: Sequence[float] = (),
+                 downsample: bool = False, scan_impl: str = "auto", *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            SSConvSSM(dim, drop_path=drop_path[i] if i < len(drop_path)
+                      else 0.0, attn_drop_rate=attn_drop, d_state=d_state,
+                      scan_impl=scan_impl, generator=generator)
+            for i in range(depth))
+        self.downsample = (PatchMerging2D(dim, generator=generator)
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for blk in self.blocks:
+            x = blk(x, mask)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x
+
+
+class VSSM(nn.Module):
+    """MedMamba top model. Input NHWC (B, H, W, 3); output float32 logits
+    (B, num_classes). Parameters are drawn from ``generator`` (a CPU
+    ``torch.Generator``; seed 0 when none is given) on the CPU; move the
+    model with ``.to(device)``. ``scan_tau`` is accepted for the JAX
+    package's signature and does nothing (see ``SS2D``)."""
+
+    def __init__(self, patch_size: int = 4, num_classes: int = 1000,
+                 depths: Sequence[int] = (2, 2, 4, 2),
+                 dims: Sequence[int] = (96, 192, 384, 768),
+                 d_state: Optional[int] = 16, drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
+                 patch_norm: bool = True, scan_impl: str = "auto",
+                 scan_tau=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = generator if generator is not None \
+            else torch.Generator().manual_seed(0)
+        num_layers = len(depths)
+        d_state = math.ceil(dims[0] / 6) if d_state is None else d_state
+        self.num_classes = num_classes
+        self.patch_embed = PatchEmbed2D(patch_size, dims[0], patch_norm,
+                                        generator=gen)
+        self.pos_drop = nn.Dropout(drop_rate) if drop_rate > 0.0 else None
+        total = sum(depths)
+        dpr = [0.0] if total == 1 else \
+            [drop_path_rate * i / (total - 1) for i in range(total)]
+        self.layers = nn.ModuleList(
+            VSSLayer(dims[i], depths[i], d_state=d_state,
+                     attn_drop=attn_drop_rate,
+                     drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
+                     downsample=i < num_layers - 1, scan_impl=scan_impl,
+                     generator=gen)
+            for i in range(num_layers))
+        self.head = nn.Linear(dims[-1], num_classes)
+        trunc_normal_02(self.head.weight, gen)
+        nn.init.zeros_(self.head.bias)
+
+    def forward_backbone(self, x: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Feature extractor: the final NHWC feature map."""
+        x = self.patch_embed(x)
+        if self.pos_drop is not None:
+            x = self.pos_drop(x)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return x
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = self.forward_backbone(x, mask)
+        return self.head(x.mean(dim=(1, 2))).float()
