@@ -7,18 +7,42 @@ Run from the root of a checkout, on a machine with a card:
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit;
-  2. build: the selective-scan forward kernel K1 from medmamba_tpu_torch/csrc/;
+  2. build: the kernels K1 (selective-scan forward), K2 (its backward) and
+     K5 (flip + rotation) from medmamba_tpu_torch/csrc/, one nvcc for each
+     source, all started together; their registers, shared memory, spills;
   3. K1 against its plain PyTorch version on the card, at the four
      medmamba_t stage shapes (batch 64), forward and reverse, float32 and
      bfloat16 inputs, with valid_len and with the last state; times of the
      kernel and the plain version beside the kernel's bound;
-  4. the main path: ``medmamba_tpu_torch.cli.evaluate`` on a synthetic NPZ
-     test split with a random medmamba_t ``.pth`` at 224^2, batch 64; K1 must
-     launch exactly 20 times per batch, and one batch's logits must match the
-     same model with the plain scan;
+  4. the serving path: ``medmamba_tpu_torch.cli.evaluate`` on a synthetic
+     NPZ test split with a random medmamba_t ``.pth`` at 224^2, batch 64; K1
+     must launch exactly 20 times per batch, and one batch's logits must
+     match the same model with the plain scan;
   5. timing: medmamba_t eval-forward throughput at 224^2, batch 64, float32
      without TF32 (the precision the port's entry points fix), and the
-     device time per forward by kernel family from ``torch.profiler``.
+     device time per forward by kernel family from ``torch.profiler``;
+  6. K1's tile-entry states and K2 against their plain versions at the four
+     stage shapes (batch 64): float32 and bfloat16 in and out, each forward
+     and reverse, the two mixed types (float32 in with a bfloat16 gy,
+     bfloat16 in with a float32 gy), and reverse at L 3200 with valid_len
+     3136; K2's time per stage beside its bound and the plain version's;
+  7. K5 against its plain version at 28^2 and 224^2 (batch 64), exactly;
+     its time;
+  8. the training path: ``medmamba_tpu_torch.cli.train`` on a synthetic 28^2
+     NPZ train/val split, medmamba_t at 224^2, batch 64, one epoch, bfloat16
+     blocks, augmentation; each step must make exactly 20 K1, 20 K2 and 1 K5
+     launches (and each validation batch 20 K1); the loss is finite, the best
+     and last ``.pth`` exist, and ``cli.evaluate`` serves the best one with
+     20 K1 launches per batch;
+  9. gradients: one float32 training forward of medmamba_t (224^2, batch
+     8, drop path 0, TF32 off) through K1, its backward through K2 against
+     the same backward through K2's plain version, per parameter; then the
+     same model on the plain scan (K1 and K2 both replaced), read and
+     held on the loss;
+ 10. timing: train-step throughput at 224^2, batch 64 on a resident uint8
+     batch, bfloat16 blocks with augmentation (``bench.py``'s
+     configuration) and float32 with augmentation, and the device time per
+     step by kernel family from ``torch.profiler``.
 The last line is the JSON ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -39,12 +63,15 @@ BATCH = 64
 IMAGE = 224
 NUM_CLASSES = 9
 N_IMAGES = 150                 # 3 batches of 64, the last one partial
+N_VAL = 70                     # 2 validation batches in the training path
+GRAD_BATCH = 8                 # the plain scan's autograd tape stays small
 GROUPS, N_STATE = 2, 16
 # medmamba_t at 224^2: per stage, channels per group (d_inner), sequence
 # length (H*W after the 4x4 patch embed and each merge) and SS2D blocks
 STAGES = [(96, 56 * 56, 2), (192, 28 * 28, 2), (384, 14 * 14, 4),
           (768, 7 * 7, 2)]
 LAUNCHES_PER_FORWARD = sum(2 * blocks for _, _, blocks in STAGES)  # 20
+TILE = 64                      # K1's tile: one saved state per tile
 # H100 SXM data-sheet peaks: HBM3 bandwidth and dense float32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
@@ -56,6 +83,32 @@ TOP_KERNELS = 12
 # and absolute. bfloat16 output: its final rounding, 2^-8 relative: 1e-2.
 TOL_FP32 = 1e-4
 TOL_BF16_OUT = 1e-2
+# K2 against its plain version: relative to each gradient's largest entry
+# (its atomics and shuffles sum in another order than the plain version's
+# loop); float32 1e-4, bfloat16 gradients 1e-2 (their last rounding).
+# In the whole model (phase 9) K2 is held to the plain adjoint the same way:
+# one forward through K1, its backward once through K2 and once through
+# selective_scan_bwd_ref, every parameter's gradient within 1e-4 of its
+# largest entry. Gradients below 1e-3 of the model's largest are zero in
+# exact arithmetic (biases in front of a BatchNorm) and are held to 1e-4 of
+# the model's largest gradient instead. The same model on the plain scan
+# (K1 and K2 both replaced) is a reading and a loss gate only: at random init
+# a few gradients are ill-conditioned (a convolution in front of a BatchNorm
+# channel of near-zero variance turns K1's rounding-level differences from
+# the plain loop into percent-level changes of its weight gradient), so
+# phase 9 also prints how far the plain model's own gradients move when the
+# input moves by a relative 2^-20.
+TOL_GRAD_MODEL = 1e-4
+INPUT_NUDGE = 2.0 ** -20
+# float32 operations the adjoint needs (a fused multiply-add counts 2), per
+# (b, d, n, t): recompute h_t (dt*A, (dt*u)*B, one FMA: 4), dh = C*gy +
+# carry (2), carry = a*dh (1), a*h_prev (1), q = dh*a*h_prev (1), and one
+# FMA each into the sums of ddt (q*A), dA (q*dt), sum_n dh*B (shared by du
+# and ddt), dB (dh*dt*u) and dC (h*gy) (10): 19, with one exponential. Per
+# (b, d, t): delta + bias, dt*u, du = dt*S + D*gy (3), ddt = Q + u*S (2),
+# ddelta, and the dD and dbias sums (3): 11. K2 as written does more (a
+# second exponential, the shuffle trees); the bound counts only the need.
+K2_OPS_DNT, K2_OPS_DT, K2_EXPS_DNT = 19, 11, 1
 
 
 def log(msg: str) -> None:
@@ -190,6 +243,372 @@ def phase_kernel_vs_plain():
     return stages, max_err
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    scale = want.float().abs().max().clamp_min(1e-30)
+    return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+def k2_costs(dpg: int, l: int):
+    """Least times in ms of one K2 launch on the card, float32: (bytes,
+    float32 operations, exp on the special-function units). Read once: u,
+    delta, gy (b, d, L), B and C (b, G, N, L), the states, A, D, bias;
+    written once: du and ddelta (b, d, L), dB and dC (b, G, N, L), dA, dD,
+    dbias."""
+    d = GROUPS * dpg
+    n_tiles = -(-l // TILE)
+    nbytes = 4 * (5 * BATCH * d * l + 4 * BATCH * GROUPS * N_STATE * l
+                  + BATCH * d * n_tiles * N_STATE + 2 * d * N_STATE + 4 * d)
+    ops = K2_OPS_DNT * BATCH * d * N_STATE * l + K2_OPS_DT * BATCH * d * l
+    exps = K2_EXPS_DNT * BATCH * d * N_STATE * l
+    return (nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_OPS_PER_S * 1e3,
+            exps / (132 * 16 * 1.98e9) * 1e3)
+
+
+def phase_backward_vs_plain():
+    """K1's states and K2 against their plain versions; K2 timed."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_cuda
+    from medmamba_tpu_torch.ops.selective_scan import (
+        selective_scan_bwd_ref, selective_scan_states_ref)
+
+    names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def operands(dpg, l, dtype, gy_dtype, kw):
+        x = scan_inputs(dpg, l, dtype, gen)
+        y, _, states = scan_cuda.selective_scan_fwd(
+            **x, delta_softplus=True, return_states=True,
+            out_dtype=gy_dtype, **kw)
+        gy = torch.randn(y.shape, generator=gen, device="cuda").to(gy_dtype)
+        return x, states, gy
+
+    def check(label, dpg, l, dtype, gy_dtype, kw):
+        x, states, gy = operands(dpg, l, dtype, gy_dtype, kw)
+        want_states = selective_scan_states_ref(
+            x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"],
+            True, kw.get("reverse_dirs"), 1, kw.get("valid_len"))
+        got = scan_cuda.selective_scan_bwd(
+            *(x[k] for k in names), states, gy, delta_softplus=True, **kw)
+        want = selective_scan_bwd_ref(
+            *(x[k] for k in names), want_states, gy, delta_softplus=True,
+            **kw)
+        torch.cuda.synchronize()
+        st_err = (states - want_states).abs().max().item()
+        torch.testing.assert_close(states, want_states, rtol=TOL_FP32,
+                                   atol=TOL_FP32)
+        rels, abss = {}, {}
+        for name, g, w in zip(names, got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise SystemExit(f"K2 {name}: {g.dtype} {tuple(g.shape)}, "
+                                 f"expected {w.dtype} {tuple(w.shape)}")
+            rels[name] = rel_err(g, w)
+            if g.dtype == torch.float32:
+                abss[name] = (g - w).abs().max().item()
+            tol = TOL_BF16_OUT if g.dtype == torch.bfloat16 else TOL_FP32
+            if rels[name] > tol:
+                raise SystemExit(f"K2 {label} d{name}: relative error "
+                                 f"{rels[name]:.3e} above {tol:g}")
+        worst = max(rels, key=rels.get)
+        log(f"  {label}: states max|err| {st_err:.3e}; K2 worst d{worst} "
+            f"{rels[worst]:.3e} of its scale; "
+            + ", ".join(f"d{k} {v:.1e}" for k, v in rels.items()))
+        return st_err, max(abss.values(), default=0.0)
+
+    max_err = 0.0
+    stages = []
+    fwd, rev = {}, {"reverse_dirs": (True, True)}
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, input dtype, gy dtype, direction): every dtype instantiation of
+    # K2; bf16 in both directions, as the bf16 training path runs it
+    cases = (("fwd fp32", f32, f32, fwd), ("rev fp32", f32, f32, rev),
+             ("fwd bf16", bf16, bf16, fwd), ("rev bf16", bf16, bf16, rev),
+             ("fwd fp32 in, bf16 gy", f32, bf16, fwd),
+             ("rev bf16 in, fp32 gy", bf16, f32, rev))
+    for si, (dpg, l, blocks) in enumerate(STAGES):
+        for name, dtype, gy_dtype, kw in cases:
+            st_err, err = check(f"stage {si} D={GROUPS * dpg} L={l} {name}",
+                                dpg, l, dtype, gy_dtype, kw)
+            max_err = max(max_err, st_err, err)
+        bytes_ms, ops_ms, exp_ms = k2_costs(dpg, l)
+        set_bytes = bytes_ms * 1e-3 * PEAK_BYTES_PER_S
+        sets = [operands(dpg, l, f32, f32, rev)
+                for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
+
+        def bwd(s, impl=scan_cuda.selective_scan_bwd):
+            x, states, gy = s
+            return impl(*(x[k] for k in names), states, gy,
+                        delta_softplus=True, **rev)
+        k_ms = back_to_back_ms(bwd, sets, 20)
+        p_ms = back_to_back_ms(
+            lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1, rounds=1)
+        del sets
+        stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
+                           launches_per_step=2 * blocks, ms=k_ms,
+                           plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                           bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
+        log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms, plain "
+            f"{p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+            f"{bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
+            f"{exp_ms:.4f}), x{2 * blocks} per step")
+    st_err, err = check("L=3200 valid_len 3136 rev fp32", STAGES[0][0], 3200,
+                        f32, f32, dict(rev, valid_len=3136))
+    return stages, max(max_err, st_err, err)
+
+
+def phase_rotate_vs_plain():
+    """K5 against its plain version, exactly; its time per launch."""
+    import torch
+
+    from medmamba_tpu_torch.ops import rotate
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def operands(size):
+        x = 255 * torch.rand(BATCH, size, size, 3, generator=gen,
+                             device="cuda")
+        angles = (2 * torch.rand(BATCH, generator=gen, device="cuda") - 1) \
+            * math.radians(10)
+        flip = torch.rand(BATCH, generator=gen, device="cuda") < 0.5
+        return x, torch.sin(angles), torch.cos(angles), flip
+
+    out = {}
+    for size in (28, IMAGE):
+        x, sin, cos, flip = operands(size)
+        got = rotate.rotate_flip_cuda(x, sin, cos, flip)
+        want = rotate.rotate_flip_ref(x, sin, cos, flip)
+        torch.cuda.synchronize()
+        n_diff = (got != want).sum().item()
+        err = (got - want).abs().max().item()
+        if n_diff:
+            raise SystemExit(f"K5 at {size}^2: {n_diff} values differ from "
+                             f"the plain version (max|err| {err:.3e})")
+        nbytes = 2 * 4 * BATCH * size * size * 3 + 9 * BATCH
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        sets = [operands(size) for _ in range(
+            max(2, math.ceil(3 * L2_BYTES / nbytes)))]
+        k_ms = back_to_back_ms(lambda s: rotate.rotate_flip_cuda(*s), sets,
+                               20)
+        p_ms = back_to_back_ms(lambda s: rotate.rotate_flip_ref(*s), sets,
+                               20)
+        del sets
+        out[size] = dict(size=size, ms=k_ms, plain_ms=p_ms,
+                         bound_ms=bound_ms, max_abs_err=err)
+        log(f"  {size}^2 batch {BATCH}: max|err| {err:.3e}; K5 "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"(bytes)")
+    return out
+
+
+def write_train_split(root: str) -> None:
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 3)
+    for split, n in (("train", N_IMAGES), ("val", N_VAL)):
+        labels = rng.integers(0, NUM_CLASSES, (n, 1)).astype(np.int64)
+        labels[:NUM_CLASSES, 0] = np.arange(NUM_CLASSES)   # every class
+        np.save(os.path.join(root, f"{split}_images.npy"),
+                rng.integers(0, 256, (n, 28, 28, 3), dtype=np.uint8))
+        np.save(os.path.join(root, f"{split}_labels.npy"), labels)
+
+
+def phase_train_path(root: str):
+    """cli.train end to end, then cli.evaluate on its best checkpoint; the
+    launch counts of each."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli import evaluate, train
+
+    write_train_split(root)
+    steps = -(-N_IMAGES // BATCH)
+    val_batches = -(-N_VAL // BATCH)
+    save = os.path.join(root, "run")
+    reset_counts()
+    t0 = time.perf_counter()
+    out = train.main(["--train_dir", root, "--val_dir", root,
+                      "--medmb_size", "T", "--image_size", str(IMAGE),
+                      "--batch_size", str(BATCH), "--epochs", "1",
+                      "--augmentation", "--dtype", "bfloat16",
+                      "--device", "cuda", "--save_dir", save,
+                      "--log_every", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {"K1": LAUNCHES_PER_FORWARD * (steps + val_batches),
+            "K2": LAUNCHES_PER_FORWARD * steps, "K5": steps}
+    log(f"  cli.train: {steps} steps + {val_batches} validation batches in "
+        f"{wall:.2f} s wall, launches {counts}, loss {out['train_loss']}, "
+        f"val acc {out['best_acc']}, {out['img_s']:.1f} img/s (first epoch, "
+        f"build and warm-up included)")
+    if counts != want:
+        raise SystemExit(f"training path launches {counts}, expected {want}")
+    if not (out["train_loss"] is not None and math.isfinite(out["train_loss"])):
+        raise SystemExit(f"training loss {out['train_loss']}")
+    for key in ("best_path", "last_path"):
+        if not (out[key] and os.path.isfile(out[key])):
+            raise SystemExit(f"{key} {out[key]} was not written")
+
+    reset_counts()
+    cm, probs = evaluate.main(["--checkpoint_path", out["best_path"],
+                               "--data_dir", root, "--split", "val",
+                               "--batch_size", str(BATCH), "--image_size",
+                               str(IMAGE), "--device", "cuda"])
+    torch.cuda.synchronize()
+    ev_counts = read_counts()
+    log(f"  cli.evaluate on {os.path.basename(out['best_path'])}: launches "
+        f"{ev_counts}")
+    if ev_counts != {"K1": LAUNCHES_PER_FORWARD * val_batches, "K2": 0,
+                     "K5": 0}:
+        raise SystemExit(f"evaluate launches {ev_counts}")
+    if probs.shape != (N_VAL, NUM_CLASSES) or not np.isfinite(probs).all():
+        raise SystemExit(f"bad probabilities: shape {probs.shape}")
+    return counts, steps
+
+
+def phase_gradients():
+    """One float32 training forward through K1 with its backward once
+    through K2 and once through K2's plain version, per parameter; then the
+    same model on the plain scan (autograd through its loop) as a reading,
+    held on the loss. Returns the worst relative gradient error of each
+    comparison."""
+    import torch
+
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS
+    from medmamba_tpu_torch.models.vssm import VSSM
+    from medmamba_tpu_torch.ops import scan_cuda
+    from medmamba_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
+    from medmamba_tpu_torch.train.trainer import cross_entropy
+
+    cfg = MODEL_CONFIGS["T"]
+    kw = dict(num_classes=NUM_CLASSES, depths=cfg.depths, dims=cfg.dims,
+              drop_path_rate=0.0)
+    model = VSSM(**kw, generator=torch.Generator().manual_seed(SEED))
+    ref = VSSM(**kw, scan_impl="ref")
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.cuda().train(), ref.cuda().train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(GRAD_BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, NUM_CLASSES, (GRAD_BATCH,), generator=gen,
+                           device="cuda")
+    labels[-1] = -1                       # one padded row, as the loader's
+    sign = torch.randint(0, 2, x.shape, generator=gen, device="cuda") * 2 - 1
+    nudged = x * (1 + INPUT_NUDGE * sign)
+    state = {k: v.clone() for k, v in ref.state_dict().items()}
+
+    def grads(m, inp):
+        m.load_state_dict(state)
+        m.zero_grad()
+        loss = cross_entropy(m(inp, labels >= 0), labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in m.named_parameters()}
+    loss_k, got = grads(model, x)
+    # the same K1 forward; _KernelScan's backward calls the plain adjoint
+    kernel_bwd = scan_cuda.selective_scan_bwd
+    scan_cuda.selective_scan_bwd = selective_scan_bwd_ref
+    try:
+        loss_p, want = grads(model, x)
+    finally:
+        scan_cuda.selective_scan_bwd = kernel_bwd
+    loss_r, plain = grads(ref, x)
+    _, moved = grads(ref, nudged)
+    torch.cuda.synchronize()
+    del model, ref
+    top = max(g.abs().max().item() for g in want.values())
+    rows, zero_worst = [], 0.0
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        if scale >= 1e-3 * top:
+            rows.append(((got[name] - w).abs().max().item() / scale, name))
+        else:
+            zero_worst = max(zero_worst,
+                             (got[name] - w).abs().max().item() / top)
+    rows.sort()
+    log(f"  K1 forward, K2 against its plain version in the backward: "
+        f"{len(rows)} gradients, median error {rows[len(rows) // 2][0]:.3e} "
+        f"of their scale, largest {rows[-1][0]:.3e} ({rows[-1][1]}; limit "
+        f"{TOL_GRAD_MODEL:g}); gradients zero in exact arithmetic "
+        f"{zero_worst:.3e} of the largest (limit {TOL_FP32:g}); loss "
+        f"{loss_k:.7f} and {loss_p:.7f}")
+
+    # reading: K1 + K2 against the plain scan, beside how far the plain
+    # model's own gradient moves when the input moves by a relative 2^-20
+    top_r = max(g.abs().max().item() for g in plain.values())
+    reading = []
+    for name, w in plain.items():
+        scale = w.abs().max().item()
+        if scale >= 1e-3 * top_r:
+            reading.append(((got[name] - w).abs().max().item() / scale,
+                            (moved[name] - w).abs().max().item() / scale,
+                            name))
+    reading.sort()
+    log(f"  K1 + K2 against the plain scan: loss {loss_k:.7f} and "
+        f"{loss_r:.7f}; median gradient error "
+        f"{reading[len(reading) // 2][0]:.3e} of its scale, largest:")
+    for err, sens, name in reading[::-1][:3]:
+        log(f"    {name}: {err:.3e} of its scale; the plain model's own "
+            f"gradient moves {sens:.3e} under the input nudge")
+    if rows[-1][0] > TOL_GRAD_MODEL or zero_worst > TOL_FP32 \
+            or abs(loss_k - loss_p) > TOL_FP32 * max(1.0, loss_p):
+        raise SystemExit("gradients through K2 disagree with its plain "
+                         "version")
+    if abs(loss_k - loss_r) > TOL_FP32 * max(1.0, loss_r):
+        raise SystemExit("the loss through K1 disagrees with the plain scan")
+    return rows[-1][0], reading[-1][0]
+
+
+def phase_train_timing():
+    """Train-step throughput on a resident uint8 batch (bf16 + augmentation,
+    then float32 + augmentation) and the bf16 step's device time by kernel
+    family."""
+    import torch
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    images = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen,
+                           device="cuda")
+    out = {}
+    for name, dtype in (("bf16+aug", torch.bfloat16),
+                        ("fp32+aug", torch.float32)):
+        model = create_model("T", NUM_CLASSES, dtype=dtype, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+        torch.cuda.reset_peak_memory_stats()
+
+        def step(_):
+            return trainer.train_step(model, opt, images, labels,
+                                      generator=gen, augment=True,
+                                      image_size=IMAGE)
+        ms = back_to_back_ms(step, [None], 5)
+        out[name] = dict(ms=ms, img_s=BATCH / ms * 1e3,
+                         peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        log(f"  train step {name}: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s")
+        if name == "bf16+aug":
+            prof_line = profile_families(lambda: step(None), "step")
+        del model, opt
+        torch.cuda.empty_cache()
+    return out, prof_line
+
+
+def reset_counts() -> None:
+    from medmamba_tpu_torch.ops import rotate, scan_cuda
+
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = rotate.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from medmamba_tpu_torch.ops import rotate, scan_cuda
+
+    return {"K1": scan_cuda.LAUNCHES, "K2": scan_cuda.BWD_LAUNCHES,
+            "K5": rotate.LAUNCHES}
+
+
 def write_split(root: str) -> None:
     import numpy as np
 
@@ -207,7 +626,6 @@ def phase_main_path(root: str):
     from medmamba_tpu_torch.cli import evaluate
     from medmamba_tpu_torch.data.transforms import preprocess
     from medmamba_tpu_torch.models.registry import create_model
-    from medmamba_tpu_torch.ops import scan_cuda
 
     write_split(root)
     model = create_model("T", NUM_CLASSES, device="cuda",
@@ -220,19 +638,20 @@ def phase_main_path(root: str):
                                   for i in range(NUM_CLASSES)}}, pth)
 
     n_batches = -(-N_IMAGES // BATCH)
-    scan_cuda.LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     cm, probs = evaluate.main(["--checkpoint_path", pth, "--data_dir", root,
                                "--batch_size", str(BATCH), "--image_size",
                                str(IMAGE), "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = scan_cuda.LAUNCHES
+    counts = read_counts()
+    launches = counts["K1"]
     log(f"  evaluate: {N_IMAGES} images in {n_batches} batches, "
-        f"{wall:.2f} s wall, K1 launches {launches}")
-    if launches != LAUNCHES_PER_FORWARD * n_batches:
-        raise SystemExit(f"K1 launched {launches} times, expected "
-                         f"{LAUNCHES_PER_FORWARD * n_batches}")
+        f"{wall:.2f} s wall, launches {counts}")
+    if counts != {"K1": LAUNCHES_PER_FORWARD * n_batches, "K2": 0, "K5": 0}:
+        raise SystemExit(f"evaluate launched {counts}, expected "
+                         f"{LAUNCHES_PER_FORWARD * n_batches} K1 only")
     if probs.shape != (N_IMAGES, NUM_CLASSES) or not np.isfinite(probs).all():
         raise SystemExit(f"bad probabilities: shape {probs.shape}")
     if not np.allclose(probs.sum(1), 1.0, atol=1e-5):
@@ -268,6 +687,8 @@ def phase_main_path(root: str):
 # kernels also carry "gemm" in their names, so convolution is tried first.
 FAMILIES = (
     ("selective_scan_fwd (K1)", r"scan_fwd_kernel"),
+    ("selective_scan_bwd (K2)", r"scan_bwd_kernel"),
+    ("rotate_flip (K5)", r"rotate_flip_kernel"),
     ("convolution", r"conv|cudnn|fprop|winograd|implicit|nchw|nhwc"),
     ("matmul", r"gemm|gemv|cutlass|xmma|cublas|splitK"),
     ("layer_norm", r"layer_norm|LayerNorm"),
@@ -292,26 +713,19 @@ def busy_us(intervals) -> float:
     return total
 
 
-def phase_timing(model):
-    """Forward throughput (back-to-back forwards between one event pair)
-    and the device time per forward by kernel family (``torch.profiler``
-    over PROFILE_STEPS forwards)."""
+def profile_families(fn, unit: str) -> dict:
+    """Device time per call of ``fn`` by kernel family, from
+    ``torch.profiler`` over PROFILE_STEPS calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
-    model.eval()
-    with torch.inference_mode():
-        fwd_ms = back_to_back_ms(model, [x], 10)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(PROFILE_STEPS):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -327,15 +741,28 @@ def phase_timing(model):
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     window = max(e for _, e in spans) - min(s for s, _ in spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
-    prof_line = {
-        "host_wall_ms_per_forward": wall_ms / PROFILE_STEPS,
-        "kernel_ms_per_forward": sum(by_family.values()),
+    return {
+        f"host_wall_ms_per_{unit}": wall_ms / PROFILE_STEPS,
+        f"kernel_ms_per_{unit}": sum(by_family.values()),
         "busy_share_of_kernel_window": busy_us(spans) / window,
-        "family_ms_per_forward": dict(
+        f"family_ms_per_{unit}": dict(
             sorted(by_family.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": k[:120],
-                         "launches_per_forward": n / PROFILE_STEPS,
-                         "ms_per_forward": t} for k, (n, t) in top]}
+                         f"launches_per_{unit}": n / PROFILE_STEPS,
+                         f"ms_per_{unit}": t} for k, (n, t) in top]}
+
+
+def phase_timing(model):
+    """Forward throughput (back-to-back forwards between one event pair)
+    and the device time per forward by kernel family."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = back_to_back_ms(model, [x], 10)
+        prof_line = profile_families(lambda: model(x), "forward")
     return fwd_ms, BATCH / fwd_ms * 1e3, prof_line
 
 
@@ -353,7 +780,7 @@ def main() -> int:
               "(medmamba_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from medmamba_tpu_torch.ops import scan_cuda
+    from medmamba_tpu_torch.ops import cuda_build, rotate, scan_cuda
 
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -366,24 +793,28 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    lib = scan_cuda.build()
-    log(f"  built {os.path.relpath(lib, REPO)} in "
+    sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE, rotate.SOURCE)
+    libs = cuda_build.build(*sources)
+    log(f"  built {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
-    with open(lib[:-3] + ".log") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+    for lib in libs:
+        with open(lib[:-3] + ".log") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line or \
+                        "Compiling entry" in line:
+                    log(f"  ptxas {os.path.basename(lib)}: {line.strip()}")
 
     log("phase 3: K1 against its plain version")
     stages, max_err = phase_kernel_vs_plain()
 
-    log("phase 4: main path (cli.evaluate, medmamba_t 224^2 batch 64)")
-    os.makedirs(scan_cuda.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scan_cuda.BUILD_DIR) as root:
+    log("phase 4: serving path (cli.evaluate, medmamba_t 224^2 batch 64)")
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         model, launches, eval_wall = phase_main_path(root)
 
     log("phase 5: timing")
     fwd_ms, img_s, prof_line = phase_timing(model)
+    del model
     k1_device_ms = prof_line["family_ms_per_forward"].get(FAMILIES[0][0], 0.0)
     per_fwd = {k: sum(s[k] * s["launches_per_forward"] for s in stages)
                for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
@@ -398,14 +829,46 @@ def main() -> int:
         f"profiler device time {k1_device_ms:.4f} ms")
     log("stages " + json.dumps(stages))
     log("profile " + json.dumps(prof_line))
+
+    log("phase 6: K1 states and K2 against their plain versions")
+    bwd_stages, k2_err = phase_backward_vs_plain()
+    per_step = {k: sum(s[k] * s["launches_per_step"] for s in bwd_stages)
+                for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
+    per_step["bound_ms"] = max(per_step["bytes_ms"], per_step["ops_ms"])
+    log(f"  K2 per step ({LAUNCHES_PER_FORWARD} launches): "
+        f"{per_step['ms']:.4f} ms; bound {per_step['bound_ms']:.4f} ms "
+        f"(bytes {per_step['bytes_ms']:.4f}, fp32 ops "
+        f"{per_step['ops_ms']:.4f}); exp units {per_step['exp_ms']:.4f} ms; "
+        f"plain {per_step['plain_ms']:.1f} ms")
+
+    log("phase 7: K5 against its plain version")
+    rot = phase_rotate_vs_plain()
+
+    log("phase 8: training path (cli.train, medmamba_t 224^2 batch 64, "
+        "bf16 blocks, augmentation)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        train_counts, train_steps = phase_train_path(root)
+
+    log("phase 9: model gradients through K2 against its plain version, "
+        "and through K1 + K2 against the plain scan")
+    grad_err, grad_err_plain_scan = phase_gradients()
+
+    log("phase 10: train-step timing")
+    train_timing, train_prof = phase_train_timing()
+    fam = train_prof["family_ms_per_step"]
+    log("train_steps " + json.dumps(train_timing))
+    log("train_profile " + json.dumps(train_prof))
+    log("k2_stages " + json.dumps(bwd_stages))
+    log("k5 " + json.dumps(rot))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
         "name": "selective_scan_fwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_fwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:787",
-        "launches": launches,
-        "launches_per_forward": LAUNCHES_PER_FORWARD,
+        "launches": train_counts["K1"],
+        "launches_per_forward": launches / -(-N_IMAGES // BATCH),
+        "launches_serving_path": launches,
         "max_abs_err": max_err,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
         "bound_ms": per_fwd["bound_ms"],
@@ -413,7 +876,34 @@ def main() -> int:
                      else "operations"),
         "library_ms": None,
         "profiled_ms_per_forward": k1_device_ms,
-        "eval_img_s": img_s}]}))
+        "profiled_ms_per_train_step": fam.get(FAMILIES[0][0], 0.0),
+        "eval_img_s": img_s}, {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
+        "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
+        "launches": train_counts["K2"],
+        "launches_per_step": train_counts["K2"] / train_steps,
+        "max_abs_err": k2_err,
+        "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
+        "bound_ms": per_step["bound_ms"],
+        "bound_by": ("bytes" if per_step["bytes_ms"] >= per_step["ops_ms"]
+                     else "operations"),
+        "library_ms": None,
+        "profiled_ms_per_train_step": fam.get(FAMILIES[1][0], 0.0),
+        "model_grad_rel_err": grad_err,
+        "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan}, {
+        "name": "rotate_flip", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
+        "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
+        "launches": train_counts["K5"],
+        "launches_per_step": train_counts["K5"] / train_steps,
+        "max_abs_err": max(r["max_abs_err"] for r in rot.values()),
+        "ms": rot[IMAGE]["ms"], "plain_ms": rot[IMAGE]["plain_ms"],
+        "bound_ms": rot[IMAGE]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "ms_28": rot[28]["ms"],
+        "profiled_ms_per_train_step": fam.get(FAMILIES[2][0], 0.0)}],
+        "train_img_s": {k: v["img_s"] for k, v in train_timing.items()}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -33,7 +33,11 @@
 // rows are padded to 65 floats so that the 16 lanes reading B[n][t] and
 // C[n][t] hit 16 different banks.
 //
-// Not here yet: the chunk-entry states that feed only the backward.
+// With a non-null `states` the kernel also writes the float32 state at the
+// entry of every 64-step tile, (b, G*dpg, n_tiles, 16) in processing order
+// (tile k is the k-th tile the group's direction visits), as the TPU forward
+// writes its chunk states for the backward. The backward kernel
+// (selective_scan_bwd.cu) recomputes each tile's states from them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +61,7 @@ struct Params {
   const float* bias;    // may be null
   void* y;
   float* last;          // may be null
+  float* states;        // may be null: (b, G*dpg, n_tiles, 16) tile entries
   int groups;
   int u_groups;
   int dpg;
@@ -121,6 +126,9 @@ scan_fwd_kernel(const Params p) {
   for (int k = 0; k < n_tiles; ++k) {
     const int t0 = (rev ? n_tiles - 1 - k : k) * kT;
     const int len = min(kT, L - t0);
+    if (p.states != nullptr && active) {
+      p.states[(((size_t)b * d_all + d0 + lc) * n_tiles + k) * kN + n] = h;
+    }
 
     for (int i = tid; i < kCh * kT; i += kThreads) {
       const int cc = i / kT;
@@ -199,7 +207,7 @@ void launch(const Params& p, int batch, cudaStream_t stream) {
 extern "C" int medmamba_selective_scan_fwd(
     const void* u, const void* delta, const void* A, const void* B,
     const void* C, const void* D, const void* bias, void* y, void* last,
-    int batch, int groups, int u_groups, int dpg, int n_state, int L,
+    void* states, int batch, int groups, int u_groups, int dpg, int n_state, int L,
     int valid_len, int softplus, int rev_mask, int in_dtype, int out_dtype,
     void* stream) {
   if (n_state != kN || batch < 1 || groups < 1 || groups > 30 ||
@@ -218,6 +226,7 @@ extern "C" int medmamba_selective_scan_fwd(
   p.bias = static_cast<const float*>(bias);
   p.y = y;
   p.last = static_cast<float*>(last);
+  p.states = static_cast<float*>(states);
   p.groups = groups;
   p.u_groups = u_groups;
   p.dpg = dpg;

@@ -7,12 +7,21 @@ triangle kernel with half-pixel centres that is widened by the scale factor
 when it downsamples (antialiasing), applied as one weight matrix per spatial
 axis. ``F.interpolate`` differs from it when it downsamples.
 
-Augmentation (flip + rotation) is not ported yet.
+Train pipeline (``augment=True``): per image a random horizontal flip and a
+random rotation within +/-10 degrees (nearest, zero fill) at the batch's own
+resolution, drawn from an explicit ``torch.Generator``, then the resize and
+the normalisation, in the JAX package's order. The flip and rotation run in
+one kernel on the card (``ops/rotate.py``, K5).
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import numpy as np
 import torch
+
+from medmamba_tpu_torch.ops.rotate import rotate_flip, rotate_flip_ref
 
 MEAN = 0.5
 STD = 0.5
@@ -52,11 +61,39 @@ def resize(x: torch.Tensor, size: int = 224) -> torch.Tensor:
     return x
 
 
+def _rotate_nearest(img: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rotate one (H, W, C) image by ``angle`` radians about its centre:
+    nearest neighbour with zero fill (the counterpart of the JAX package's
+    ``_rotate_nearest``)."""
+    angle = angle.float().reshape(1)
+    return rotate_flip_ref(img[None].float(), torch.sin(angle),
+                           torch.cos(angle),
+                           torch.zeros(1, dtype=torch.bool))[0]
+
+
+def random_augment(x: torch.Tensor, generator: torch.Generator,
+                   max_rotate_deg: float = 10.0) -> torch.Tensor:
+    """Per image RandomHorizontalFlip(p=0.5) then RandomRotation(+/-deg) of a
+    float NHWC batch. The flips and angles are drawn from ``generator`` (on
+    its device) and never from the global generator."""
+    b = x.shape[0]
+    dev = generator.device
+    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    max_rad = math.radians(max_rotate_deg)
+    angles = (2.0 * torch.rand(b, generator=generator, device=dev) - 1.0) \
+        * max_rad
+    return rotate_flip(x, angles.to(x.device), flip.to(x.device))
+
+
 def preprocess(images: torch.Tensor, *, size: int = 224,
-               augment: bool = False) -> torch.Tensor:
+               augment: bool = False,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """uint8 NHWC batch -> normalised float32 (B, size, size, 3), on the
-    batch's device."""
+    batch's device. ``augment`` flips and rotates at the batch's own
+    resolution before the resize, with draws from ``generator``."""
+    x = images.float()
     if augment:
-        raise NotImplementedError(
-            "random flip/rotation (the training augmentation) is not ported")
-    return normalize(resize(images.float(), size))
+        if generator is None:
+            raise ValueError("augment=True needs a torch.Generator")
+        x = random_augment(x, generator)
+    return normalize(resize(x, size))

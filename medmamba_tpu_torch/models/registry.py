@@ -29,17 +29,21 @@ MODEL_CONFIGS = {
 
 def create_model(size: str = "T", num_classes: int = 1000, *,
                  attn_drop_rate: float = 0.0, drop_rate: float = 0.0,
-                 scan_impl: str = "auto", scan_tau=None,
+                 dtype=torch.float32, scan_impl: str = "auto",
+                 use_checkpoint: bool = False, scan_tau=None,
                  generator: Optional[torch.Generator] = None,
                  device="cuda") -> VSSM:
     """Build a VSSM of the given size on ``device`` (``cuda`` by default;
-    raises without a card unless ``device="cpu"``)."""
+    raises without a card unless ``device="cpu"``). ``dtype`` is the block
+    dtype (parameters stay float32); ``use_checkpoint`` recomputes each
+    block's activations in the backward."""
     dev = resolve_device(device)
     cfg = MODEL_CONFIGS[size]
     model = VSSM(num_classes=num_classes, depths=cfg.depths, dims=cfg.dims,
                  d_state=cfg.d_state, drop_path_rate=cfg.drop_path_rate,
                  attn_drop_rate=attn_drop_rate, drop_rate=drop_rate,
-                 scan_impl=scan_impl, scan_tau=scan_tau, generator=generator)
+                 scan_impl=scan_impl, scan_tau=scan_tau, generator=generator,
+                 dtype=dtype, use_checkpoint=use_checkpoint)
     return model.to(dev)
 
 

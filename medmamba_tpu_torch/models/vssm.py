@@ -12,17 +12,28 @@ loads with ``strict=True``:
   conv1x1(7) ReLU.
 
 Activations stay NHWC between blocks as in the JAX package; convolutions run
-on NCHW views. The model is float32 throughout, and the scan core is float32
-as in the reference.
+on NCHW views.
+
+``dtype`` is the block dtype, as flax's ``dtype=``: parameters stay float32
+and each layer casts its input and its parameters to the block dtype where it
+uses them (no ``torch.autocast``, whose LayerNorm and matmul rules differ from
+flax's). LayerNorm and BatchNorm statistics are float32 and the LayerNorm
+output is cast back to the block dtype; the scan core is float32 and emits y
+in the block dtype; ``out_norm`` runs in float32 and the logits are float32.
+
+Training randomness comes from a ``torch.Generator`` that the caller passes
+to ``forward``, never from the global generator.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from medmamba_tpu_torch.ops.cross_scan import cross_merge_fr, cross_scan_fwd
 from medmamba_tpu_torch.ops.selective_scan import selective_scan
@@ -66,24 +77,56 @@ def dt_bias_init(w: torch.Tensor, gen: torch.Generator, dt_min: float = 1e-3,
 
 
 # ---------------------------------------------------------------------------
-# Layers
+# Layers, with flax's dtype rules
 # ---------------------------------------------------------------------------
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return F.conv2d(x.to(dtype), layer.weight.to(dtype), bias, layer.stride,
+                    layer.padding, layer.dilation, layer.groups)
+
+
+def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Statistics and affine in float32, the result in ``dtype``."""
+    return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
+                        layer.bias, layer.eps).to(dtype)
+
+
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity in eval mode or at rate 0."""
+    """Per-sample stochastic depth; identity in eval mode or at rate 0.
+
+    The keep mask is drawn by :meth:`sample` from the caller's generator
+    and passed to ``forward``, so a recomputation under activation
+    checkpointing applies the same mask."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def sample(self, batch: int, generator: Optional[torch.Generator],
+               device) -> Optional[torch.Tensor]:
+        """The per-sample keep mask (bool, (batch,)) of one training
+        forward, or None where the layer is the identity."""
         if not self.training or self.rate == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("DropPath in training needs a torch.Generator")
+        return (torch.rand(batch, generator=generator,
+                           device=generator.device) < 1.0 - self.rate
+                ).to(device)
+
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if keep is None:
             return x
-        keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.rand(shape, device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        mask = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class MaskedBatchNorm(nn.Module):
@@ -94,6 +137,11 @@ class MaskedBatchNorm(nn.Module):
     partial batch do not bias them) and updates the running statistics as
     ``flax.linen.BatchNorm(momentum=0.9)`` does: the running variance is the
     biased batch variance. Parameter and buffer names are ``nn.BatchNorm2d``'s.
+
+    Statistics are float32 whatever the input dtype; the normalisation runs
+    in the input's dtype, as the JAX ``MaskedBatchNorm`` does. With
+    ``update_stats`` false (a recomputation under activation
+    checkpointing) the running statistics are left as they are.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -107,48 +155,71 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked",
                              torch.tensor(0, dtype=torch.long))
+        self.update_stats = True
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
+            xf = x.float()
             red = [0] + list(range(2, x.ndim))
             if mask is None:
-                mean = x.mean(red)
-                var = (x * x).mean(red) - mean * mean
+                mean = xf.mean(red)
+                var = (xf * xf).mean(red) - mean * mean
             else:
-                w = mask.to(x.dtype).reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+                w = mask.float().reshape((x.shape[0],) + (1,) * (x.ndim - 1))
                 per_sample = float(math.prod(x.shape[2:]))
                 cnt = torch.clamp_min(w.sum() * per_sample, 1.0)
-                mean = (x * w).sum(red) / cnt
-                var = (x * x * w).sum(red) / cnt - mean * mean
+                mean = (xf * w).sum(red) / cnt
+                var = (xf * xf * w).sum(red) / cnt - mean * mean
             var = var.clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(m).add_((1 - m) * mean)
-                self.running_var.mul_(m).add_((1 - m) * var)
-                self.num_batches_tracked.add_(1)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(m).add_((1 - m) * mean)
+                    self.running_var.mul_(m).add_((1 - m) * var)
+                    self.num_batches_tracked.add_(1)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.reshape(shape)) * inv.reshape(shape) \
-            + self.bias.reshape(shape)
+        dt = x.dtype
+        return (x - mean.to(dt).reshape(shape)) * inv.to(dt).reshape(shape) \
+            + self.bias.to(dt).reshape(shape)
+
+
+@contextlib.contextmanager
+def _frozen_batch_stats(module: nn.Module):
+    """Leave the running statistics of ``module``'s BatchNorms alone while
+    the block is recomputed for its backward."""
+    bns = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 class PatchEmbed2D(nn.Module):
     """4x4 non-overlapping conv patchify + optional LayerNorm."""
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
-                 patch_norm: bool = True, *, generator: torch.Generator):
+                 patch_norm: bool = True, dtype=torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
+        self.dtype = dtype
         self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
         kaiming_fan_out(self.proj.weight, generator)
         nn.init.zeros_(self.proj.bias)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5) if patch_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C_in)
-        x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-        return self.norm(x) if self.norm is not None else x
+        x = _conv(self.proj, x.permute(0, 3, 1, 2), self.dtype)
+        x = x.permute(0, 2, 3, 1)
+        if self.norm is not None:
+            x = _layer_norm(self.norm, x, self.dtype)
+        return x
 
 
 class PatchMerging2D(nn.Module):
@@ -157,8 +228,10 @@ class PatchMerging2D(nn.Module):
     Gather order (even/even, odd/even, even/odd, odd/odd); an odd size is
     cropped to its even part."""
 
-    def __init__(self, dim: int, *, generator: torch.Generator):
+    def __init__(self, dim: int, dtype=torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
+        self.dtype = dtype
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
         trunc_normal_02(self.reduction.weight, generator)
@@ -169,7 +242,8 @@ class PatchMerging2D(nn.Module):
                        x[:, 1::2, 0::2][:, :hh, :ww],
                        x[:, 0::2, 1::2][:, :hh, :ww],
                        x[:, 1::2, 1::2][:, :hh, :ww]], dim=-1)
-        return self.reduction(self.norm(x))
+        return _linear(self.reduction,
+                       _layer_norm(self.norm, x, self.dtype), self.dtype)
 
 
 class SS2D(nn.Module):
@@ -190,8 +264,9 @@ class SS2D(nn.Module):
                  expand: int = 2, dt_rank: Optional[int] = None,
                  dropout: float = 0.0, conv_bias: bool = True,
                  bias: bool = False, scan_impl: str = "auto", scan_tau=None,
-                 *, generator: torch.Generator):
+                 dtype=torch.float32, *, generator: torch.Generator):
         super().__init__()
+        self.dtype = dtype
         self.d_state = d_state
         self.d_inner = d_inner = expand * d_model
         self.dt_rank = dt_rank = dt_rank or math.ceil(d_model / 16)
@@ -230,17 +305,18 @@ class SS2D(nn.Module):
         b, h, w, _ = x.shape
         l = h * w
         d_inner, n, r = self.d_inner, self.d_state, self.dt_rank
+        dt_ = self.dtype
 
-        x, z = self.in_proj(x).chunk(2, dim=-1)
-        x = F.silu(self.conv2d(x.permute(0, 3, 1, 2))).permute(0, 2, 3, 1)
-        xs = cross_scan_fwd(x)                              # (B, 2, D, L)
+        x, z = _linear(self.in_proj, x, dt_).chunk(2, dim=-1)
+        x = F.silu(_conv(self.conv2d, x.permute(0, 3, 1, 2), dt_))
+        xs = cross_scan_fwd(x.permute(0, 2, 3, 1))          # (B, 2, D, L)
 
         # weights are laid out [pair j][direction k]: pair 0 (directions 0, 1)
         # scans forward, pair 1 (directions 2, 3) the same data in reverse
-        wp4 = self.x_proj_weight.reshape(2, 2, r + 2 * n, d_inner)
+        wp4 = self.x_proj_weight.to(dt_).reshape(2, 2, r + 2 * n, d_inner)
         x_dbl = torch.einsum("bkdl,jkcd->bjkcl", xs, wp4)
         dts4, Bs4, Cs4 = torch.split(x_dbl, [r, n, n], dim=3)
-        wdt4 = self.dt_projs_weight.reshape(2, 2, d_inner, r)
+        wdt4 = self.dt_projs_weight.to(dt_).reshape(2, 2, d_inner, r)
         dts4 = torch.einsum("bjkrl,jkdr->bjkdl", dts4, wdt4)
 
         u = xs.reshape(b, 2 * d_inner, l)
@@ -256,12 +332,16 @@ class SS2D(nn.Module):
                 Bs4[:, j].contiguous(), Cs4[:, j].contiguous(),
                 Ds[ks].reshape(-1), delta_bias=bias[ks].reshape(-1),
                 delta_softplus=True, impl=self.scan_impl,
-                reverse_dirs=(rev, rev))
+                reverse_dirs=(rev, rev), out_dtype=dt_)
             return y.reshape(b, 2, d_inner, l)
 
         y = cross_merge_fr(scan_pair(0, False), scan_pair(1, True), h, w)
-        y = self.out_norm(y.transpose(1, 2).reshape(b, h, w, d_inner))
-        out = self.out_proj(y * F.silu(z))
+        # out_norm in float32 whatever the block dtype (the JAX model's
+        # vssm.py:447-454)
+        y = _layer_norm(self.out_norm,
+                        y.transpose(1, 2).reshape(b, h, w, d_inner),
+                        torch.float32)
+        out = _linear(self.out_proj, y.to(dt_) * F.silu(z), dt_)
         return self.dropout(out) if self.dropout is not None else out
 
 
@@ -275,13 +355,16 @@ class SSConvSSM(nn.Module):
 
     def __init__(self, hidden_dim: int, drop_path: float = 0.0,
                  attn_drop_rate: float = 0.0, d_state: int = 16,
-                 scan_impl: str = "auto", *, generator: torch.Generator):
+                 scan_impl: str = "auto", dtype=torch.float32, *,
+                 generator: torch.Generator):
         super().__init__()
         half = hidden_dim // 2
+        self.dtype = dtype
         self.ln_1 = nn.LayerNorm(half, eps=1e-5)
         self.self_attention = SS2D(half, d_state=d_state,
                                    dropout=attn_drop_rate,
-                                   scan_impl=scan_impl, generator=generator)
+                                   scan_impl=scan_impl, dtype=dtype,
+                                   generator=generator)
         self.drop_path = DropPath(drop_path)
         convs = [nn.Conv2d(half, half, 3, padding=1),
                  nn.Conv2d(half, half, 3, padding=1),
@@ -293,14 +376,21 @@ class SSConvSSM(nn.Module):
             MaskedBatchNorm(half), convs[0], MaskedBatchNorm(half), nn.ReLU(),
             convs[1], MaskedBatchNorm(half), nn.ReLU(), convs[2], nn.ReLU())
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: rows that count in the BatchNorm statistics; ``keep``:
+        the DropPath keep mask (``self.drop_path.sample``), None for none."""
         left, right = x.chunk(2, dim=-1)
-        r = self.drop_path(self.self_attention(self.ln_1(right)))
+        r = self.self_attention(_layer_norm(self.ln_1, right, self.dtype))
+        r = self.drop_path(r, keep)
         c = left.permute(0, 3, 1, 2)
         for layer in self.conv33conv33conv11:
-            c = layer(c, mask) if isinstance(layer, MaskedBatchNorm) \
-                else layer(c)
+            if isinstance(layer, MaskedBatchNorm):
+                c = layer(c, mask)
+            elif isinstance(layer, nn.Conv2d):
+                c = _conv(layer, c, self.dtype)
+            else:
+                c = layer(c)
         c = c.permute(0, 2, 3, 1)
         # concat + channel_shuffle(groups=2) == out[..., 2j] = c[..., j],
         # out[..., 2j + 1] = r[..., j]
@@ -313,21 +403,33 @@ class VSSLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, d_state: int = 16,
                  attn_drop: float = 0.0, drop_path: Sequence[float] = (),
-                 downsample: bool = False, scan_impl: str = "auto", *,
+                 downsample: bool = False, scan_impl: str = "auto",
+                 use_checkpoint: bool = False, dtype=torch.float32, *,
                  generator: torch.Generator):
         super().__init__()
+        self.use_checkpoint = use_checkpoint
         self.blocks = nn.ModuleList(
             SSConvSSM(dim, drop_path=drop_path[i] if i < len(drop_path)
                       else 0.0, attn_drop_rate=attn_drop, d_state=d_state,
-                      scan_impl=scan_impl, generator=generator)
+                      scan_impl=scan_impl, dtype=dtype, generator=generator)
             for i in range(depth))
-        self.downsample = (PatchMerging2D(dim, generator=generator)
+        self.downsample = (PatchMerging2D(dim, dtype, generator=generator)
                            if downsample else None)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for blk in self.blocks:
-            x = blk(x, mask)
+            keep = blk.drop_path.sample(x.shape[0], generator, x.device)
+            if self.use_checkpoint and torch.is_grad_enabled():
+                # activations rematerialised in the backward, as nn.remat
+                # does in the JAX model; the recomputation reuses the keep
+                # mask and leaves the BatchNorm running statistics alone
+                x = checkpoint(blk, x, mask, keep, use_reentrant=False,
+                               context_fn=lambda blk=blk: (
+                                   contextlib.nullcontext(),
+                                   _frozen_batch_stats(blk)))
+            else:
+                x = blk(x, mask, keep)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -338,7 +440,9 @@ class VSSM(nn.Module):
     (B, num_classes). Parameters are drawn from ``generator`` (a CPU
     ``torch.Generator``; seed 0 when none is given) on the CPU; move the
     model with ``.to(device)``. ``scan_tau`` is accepted for the JAX
-    package's signature and does nothing (see ``SS2D``)."""
+    package's signature and does nothing (see ``SS2D``). ``dtype`` is the
+    block dtype (float32 or bfloat16); ``use_checkpoint`` recomputes each
+    block's activations in the backward."""
 
     def __init__(self, patch_size: int = 4, num_classes: int = 1000,
                  depths: Sequence[int] = (2, 2, 4, 2),
@@ -346,15 +450,17 @@ class VSSM(nn.Module):
                  d_state: Optional[int] = 16, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.1,
                  patch_norm: bool = True, scan_impl: str = "auto",
-                 scan_tau=None, generator: Optional[torch.Generator] = None):
+                 scan_tau=None, generator: Optional[torch.Generator] = None,
+                 dtype=torch.float32, use_checkpoint: bool = False):
         super().__init__()
+        self.dtype = dtype
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         num_layers = len(depths)
         d_state = math.ceil(dims[0] / 6) if d_state is None else d_state
         self.num_classes = num_classes
         self.patch_embed = PatchEmbed2D(patch_size, dims[0], patch_norm,
-                                        generator=gen)
+                                        dtype, generator=gen)
         self.pos_drop = nn.Dropout(drop_rate) if drop_rate > 0.0 else None
         total = sum(depths)
         dpr = [0.0] if total == 1 else \
@@ -364,6 +470,7 @@ class VSSM(nn.Module):
                      attn_drop=attn_drop_rate,
                      drop_path=dpr[sum(depths[:i]):sum(depths[:i + 1])],
                      downsample=i < num_layers - 1, scan_impl=scan_impl,
+                     use_checkpoint=use_checkpoint, dtype=dtype,
                      generator=gen)
             for i in range(num_layers))
         self.head = nn.Linear(dims[-1], num_classes)
@@ -371,16 +478,20 @@ class VSSM(nn.Module):
         nn.init.zeros_(self.head.bias)
 
     def forward_backbone(self, x: torch.Tensor,
-                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Feature extractor: the final NHWC feature map."""
-        x = self.patch_embed(x)
+                         mask: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+        """Feature extractor: the final NHWC feature map, in the block
+        dtype. ``mask`` marks the rows that count in the BatchNorm
+        statistics; ``generator`` feeds DropPath in training."""
+        x = self.patch_embed(x.to(self.dtype))
         if self.pos_drop is not None:
             x = self.pos_drop(x)
         for layer in self.layers:
-            x = layer(x, mask)
+            x = layer(x, mask, generator)
         return x
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.forward_backbone(x, mask)
-        return self.head(x.mean(dim=(1, 2))).float()
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.forward_backbone(x, mask, generator)
+        return _linear(self.head, x.mean(dim=(1, 2)), self.dtype).float()

@@ -1,86 +1,44 @@
-"""The selective-scan forward kernel K1 on Hopper: build, bind and launch.
+"""The selective-scan kernels K1 (forward) and K2 (backward) on Hopper.
 
-Counterpart of ``medmamba_tpu/ops/pallas_scan.py`` (its ``_fwd_kernel_ssd``).
-The kernel is ``csrc/selective_scan_fwd.cu``, compiled with ``nvcc`` for
-``sm_90a`` into a shared library with a plain C interface, keyed by a hash of
-the source and the flags, and loaded with ``ctypes``. The build happens on the
-first launch, never at import, so the module imports on machines without a
-card or a compiler.
+Counterparts of ``medmamba_tpu/ops/pallas_scan.py``'s ``_fwd_kernel_ssd`` and
+``_bwd_kernel_ssd``. The kernels are ``csrc/selective_scan_fwd.cu`` and
+``csrc/selective_scan_bwd.cu``, built and loaded by ``ops/cuda_build.py`` on
+first launch.
 
-``LAUNCHES`` counts the kernel launches made through :func:`selective_scan_fwd`.
+``LAUNCHES`` counts K1 launches made through :func:`selective_scan_fwd` and
+``BWD_LAUNCHES`` K2 launches made through :func:`selective_scan_bwd`.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Optional, Sequence
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "selective_scan_fwd.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from medmamba_tpu_torch.ops import cuda_build
+
+FWD_SOURCE = "selective_scan_fwd.cu"
+BWD_SOURCE = "selective_scan_bwd.cu"
 N_STATE = 16
+TILE = 64          # K1's tile: the states hold one entry per tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = 0
-_lib: Optional[ctypes.CDLL] = None
+BWD_LAUNCHES = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
-                           "selective-scan kernel cannot be built")
-    return path
+def _declare_fwd(lib: ctypes.CDLL) -> None:
+    fn = lib.medmamba_selective_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
-def build() -> str:
-    """Compile the kernel (once per source hash) and return the library path.
-
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``.
-    """
-    with open(SOURCE, "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    lib_path = os.path.join(BUILD_DIR,
-                            f"libselective_scan_fwd_{key.hexdigest()[:16]}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    with open(lib_path[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or none
-    return lib_path
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.medmamba_selective_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.medmamba_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.medmamba_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    fn = lib.medmamba_selective_scan_bwd
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 def _check(name: str, x: torch.Tensor, device, dtypes, shape) -> None:
@@ -95,25 +53,14 @@ def _check(name: str, x: torch.Tensor, device, dtypes, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
-                       B: torch.Tensor, C: torch.Tensor,
-                       D: Optional[torch.Tensor] = None,
-                       delta_bias: Optional[torch.Tensor] = None, *,
-                       delta_softplus: bool = False,
-                       reverse_dirs: Optional[Sequence[bool]] = None,
-                       u_tile: int = 1, out_dtype=None,
-                       valid_len: Optional[int] = None,
-                       return_last_state: bool = False):
-    """Launch K1 on CUDA tensors; the layouts of ``ops.selective_scan``.
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
 
-    u (b, G/u_tile * dpg, L) and delta (b, G*dpg, L), B and C (b, G, 16, L),
-    all float32 or all bfloat16; A (G*dpg, 16), D and delta_bias (G*dpg,)
-    float32. Returns y (b, G*dpg, L) in ``out_dtype`` (float32 by default)
-    and, with ``return_last_state``, the float32 state (b, G*dpg, 16) after
-    each channel's last scanned step. Raises on anything the kernel does not
-    take; there is no other path for a CUDA tensor.
-    """
-    global LAUNCHES
+
+def _validate(u, delta, A, B, C, D, delta_bias, reverse_dirs, u_tile,
+              valid_len):
+    """Check the operands of either kernel; returns (b, d, l, g, dpg,
+    rev_mask, valid_len)."""
     if u.device.type != "cuda":
         raise ValueError(f"the CUDA selective scan needs CUDA tensors, "
                          f"got u on {u.device}")
@@ -133,9 +80,6 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     for name, x in (("D", D), ("delta_bias", delta_bias)):
         if x is not None:
             _check(name, x, device, (torch.float32,), (d,))
-    out_dtype = out_dtype or torch.float32
-    if out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"out_dtype {out_dtype} is not float32 or bfloat16")
     rev_mask = 0
     if reverse_dirs is not None:
         if len(reverse_dirs) != g:
@@ -145,23 +89,115 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         valid_len = l
     elif not 0 <= valid_len <= l:
         raise ValueError(f"valid_len {valid_len} outside [0, {l}]")
+    return b, d, l, g, dpg, rev_mask, valid_len
 
+
+def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       D: Optional[torch.Tensor] = None,
+                       delta_bias: Optional[torch.Tensor] = None, *,
+                       delta_softplus: bool = False,
+                       reverse_dirs: Optional[Sequence[bool]] = None,
+                       u_tile: int = 1, out_dtype=None,
+                       valid_len: Optional[int] = None,
+                       return_last_state: bool = False,
+                       return_states: bool = False):
+    """Launch K1 on CUDA tensors; the layouts of ``ops.selective_scan``.
+
+    u (b, G/u_tile * dpg, L) and delta (b, G*dpg, L), B and C (b, G, 16, L),
+    all float32 or all bfloat16; A (G*dpg, 16), D and delta_bias (G*dpg,)
+    float32. Returns ``(y, last, states)``: y (b, G*dpg, L) in ``out_dtype``
+    (float32 by default); with ``return_last_state`` the float32 state
+    (b, G*dpg, 16) after each channel's last scanned step, else None; with
+    ``return_states`` the float32 state at the entry of every 64-step tile,
+    (b, G*dpg, n_tiles, 16) in processing order (K2's input), else None.
+
+    Raises on anything the kernel does not take, and when a gradient is
+    required: y carries no autograd history, so differentiable calls go
+    through ``ops.selective_scan``, whose backward is K2.
+    """
+    global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (u, delta, A, B, C, D, delta_bias)):
+        raise RuntimeError("selective_scan_fwd has no backward of its own; "
+                           "call medmamba_tpu_torch.ops.selective_scan")
+    b, d, l, g, dpg, rev_mask, valid_len = _validate(
+        u, delta, A, B, C, D, delta_bias, reverse_dirs, u_tile, valid_len)
+    out_dtype = out_dtype or torch.float32
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"out_dtype {out_dtype} is not float32 or bfloat16")
+
+    device = u.device
     y = torch.empty((b, d, l), dtype=out_dtype, device=device)
     last = (torch.empty((b, d, N_STATE), dtype=torch.float32, device=device)
             if return_last_state else None)
-    lib = _load()
+    states = (torch.empty((b, d, -(-l // TILE), N_STATE), dtype=torch.float32,
+                          device=device) if return_states else None)
+    lib = cuda_build.load(FWD_SOURCE, _declare_fwd)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.medmamba_selective_scan_fwd(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), None if D is None else D.data_ptr(),
-            None if delta_bias is None else delta_bias.data_ptr(),
-            y.data_ptr(), None if last is None else last.data_ptr(),
-            b, g, g // u_tile, dpg, N_STATE, l, valid_len,
-            int(bool(delta_softplus)), rev_mask, _DTYPE_CODE[u.dtype],
-            _DTYPE_CODE[out_dtype], stream)
-    if rc != 0:
-        msg = lib.medmamba_cuda_error_string(rc).decode()
-        raise RuntimeError(f"selective-scan kernel launch failed: {msg} ({rc})")
+            C.data_ptr(), _ptr(D), _ptr(delta_bias), y.data_ptr(),
+            _ptr(last), _ptr(states), b, g, g // u_tile, dpg, N_STATE, l,
+            valid_len, int(bool(delta_softplus)), rev_mask,
+            _DTYPE_CODE[u.dtype], _DTYPE_CODE[out_dtype], stream)
+    cuda_build.check_launch(lib, rc, "selective-scan forward")
     LAUNCHES += 1
-    return (y, last) if return_last_state else y
+    return y, last, states
+
+
+def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       D: Optional[torch.Tensor],
+                       delta_bias: Optional[torch.Tensor],
+                       states: torch.Tensor, gy: torch.Tensor, *,
+                       delta_softplus: bool = False,
+                       reverse_dirs: Optional[Sequence[bool]] = None,
+                       u_tile: int = 1,
+                       valid_len: Optional[int] = None):
+    """Launch K2: the gradients of K1's y with respect to its inputs.
+
+    Operands as for :func:`selective_scan_fwd`, plus the tile-entry
+    ``states`` it returned and gy (b, G*dpg, L), float32 or bfloat16.
+    Returns ``(du, ddelta, dA, dB, dC, dD, dbias)`` in the dtypes of their
+    primals (du and ddelta in u's, dB and dC in B's, the rest float32); dD
+    and dbias are None where D and delta_bias are. With ``u_tile > 1`` the
+    tiled groups' du are summed onto the shared u, as the JAX package's
+    ``_vjp_bwd`` does.
+    """
+    global BWD_LAUNCHES
+    b, d, l, g, dpg, rev_mask, valid_len = _validate(
+        u, delta, A, B, C, D, delta_bias, reverse_dirs, u_tile, valid_len)
+    device = u.device
+    _check("states", states, device, (torch.float32,),
+           (b, d, -(-l // TILE), N_STATE))
+    _check("gy", gy, device, tuple(_DTYPE_CODE), (b, d, l))
+
+    du = torch.empty((b, d, l), dtype=u.dtype, device=device)
+    ddelta = torch.empty_like(delta)
+    f32 = dict(dtype=torch.float32, device=device)
+    dA = torch.zeros((d, N_STATE), **f32)
+    dB = torch.zeros((b, g, N_STATE, l), **f32)
+    dC = torch.zeros((b, g, N_STATE, l), **f32)
+    dD = torch.zeros((d,), **f32) if D is not None else None
+    dbias = torch.zeros((d,), **f32) if delta_bias is not None else None
+    lib = cuda_build.load(BWD_SOURCE, _declare_bwd)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.medmamba_selective_scan_bwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), _ptr(D), _ptr(delta_bias), states.data_ptr(),
+            gy.data_ptr(), du.data_ptr(), ddelta.data_ptr(), dA.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias), b, g,
+            g // u_tile, dpg, N_STATE, l, valid_len,
+            int(bool(delta_softplus)), rev_mask, _DTYPE_CODE[u.dtype],
+            _DTYPE_CODE[gy.dtype], stream)
+    cuda_build.check_launch(lib, rc, "selective-scan backward")
+    BWD_LAUNCHES += 1
+    if u_tile > 1:
+        # the shared u fed every tiled group: sum their cotangents
+        du = du.reshape(b, u_tile, d // u_tile, l).sum(1, dtype=torch.float32)
+        du = du.to(u.dtype)
+    return du, ddelta, dA, dB.to(B.dtype), dC.to(C.dtype), dD, dbias

@@ -17,8 +17,11 @@ and the recurrence (per batch, channel d, state n):
 
 ``selective_scan_ref`` is the plain version: a sequential float32 loop over L,
 as ``selective_scan_seq`` is in the JAX package. ``selective_scan`` is the
-entry point: on a CUDA tensor it launches the hand-written kernel
-(``ops/scan_cuda.py``), on a CPU tensor it runs the plain version.
+entry point: on a CUDA tensor it launches the hand-written kernels
+(``ops/scan_cuda.py``: K1 forward, K2 as its backward), on a CPU tensor it
+runs the plain version and autograd differentiates its loop.
+``selective_scan_states_ref`` and ``selective_scan_bwd_ref`` are the plain
+versions of K1's tile-entry states and of K2.
 """
 from __future__ import annotations
 
@@ -80,6 +83,194 @@ def _flip_groups(x: torch.Tensor, g: int, reverse_dirs) -> torch.Tensor:
     return torch.cat(parts, dim=1).reshape(shape)
 
 
+def _tile_starts(l: int, rev: bool) -> list:
+    """Processing-order index at which each of K1's 64-step tiles starts.
+    Tiles sit at buffer positions [64m, 64m + 64); a reverse group visits
+    the last (possibly short) one first."""
+    tile = scan_cuda.TILE
+    n_tiles = -(-l // tile)
+    if not rev:
+        return [tile * k for k in range(n_tiles)]
+    return [l - min(l, tile * (n_tiles - k)) for k in range(n_tiles)]
+
+
+def _groups_in_order(u, delta, B, C, delta_bias, delta_softplus,
+                     reverse_dirs, u_tile, valid_len):
+    """Per group, float32 operands in processing order (reverse groups
+    flipped along L): a list of dicts with u, dt (b, dpg, L), the derivative
+    of dt by delta ``fac`` (0 in the padded tail), B and C (b, N, L), and
+    the flag ``rev``."""
+    b, d, l = delta.shape
+    g = B.shape[1]
+    dpg = d // g
+    x = delta.float()
+    if delta_bias is not None:
+        x = x + delta_bias.float()[None, :, None]
+    if delta_softplus:
+        dt = F.softplus(x)
+        fac = torch.where(x > 20.0, torch.ones_like(x), torch.sigmoid(x))
+    else:
+        dt, fac = x, torch.ones_like(x)
+    if valid_len is not None and valid_len < l:
+        pad = torch.arange(l, device=x.device) >= valid_len
+        dt = dt.masked_fill(pad, 0.0)
+        fac = fac.masked_fill(pad, 0.0)
+    u = u.float()
+    if u_tile > 1:
+        u = torch.cat([u] * u_tile, dim=1)
+    rev = list(reverse_dirs) if reverse_dirs is not None else [False] * g
+    out = []
+    for k in range(g):
+        ch = slice(k * dpg, (k + 1) * dpg)
+        grp = dict(u=u[:, ch], dt=dt[:, ch], fac=fac[:, ch],
+                   B=B[:, k].float(), C=C[:, k].float())
+        if rev[k]:
+            grp = {name: v.flip(-1) for name, v in grp.items()}
+        grp["rev"] = rev[k]
+        out.append(grp)
+    return out
+
+
+def selective_scan_states_ref(u: torch.Tensor, delta: torch.Tensor,
+                              A: torch.Tensor, B: torch.Tensor,
+                              C: torch.Tensor,
+                              delta_bias: Optional[torch.Tensor] = None,
+                              delta_softplus: bool = False,
+                              reverse_dirs: Optional[Sequence[bool]] = None,
+                              u_tile: int = 1,
+                              valid_len: Optional[int] = None) -> torch.Tensor:
+    """The plain version of K1's tile-entry states: the float32 state before
+    each 64-step tile, (b, KD, n_tiles, N) in processing order, for the
+    call-site contract of :func:`selective_scan`."""
+    b, d, l = delta.shape
+    g = B.shape[1]
+    A4 = A.float().reshape(g, d // g, -1)
+    per_group = []
+    for k, grp in enumerate(_groups_in_order(
+            u, delta, B, C, delta_bias, delta_softplus, reverse_dirs, u_tile,
+            valid_len)):
+        starts = set(_tile_starts(l, grp["rev"]))
+        h = u.new_zeros((b, d // g, A4.shape[-1]), dtype=torch.float32)
+        kept = []
+        for j in range(l):
+            if j in starts:
+                kept.append(h)
+            dt = grp["dt"][..., j, None]
+            h = torch.exp(dt * A4[k]) * h \
+                + (dt * grp["u"][..., j, None]) * grp["B"][:, None, :, j]
+        per_group.append(torch.stack(kept, dim=2))
+    return torch.cat(per_group, dim=1)
+
+
+def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                           D: Optional[torch.Tensor],
+                           delta_bias: Optional[torch.Tensor],
+                           states: torch.Tensor, gy: torch.Tensor, *,
+                           delta_softplus: bool = False,
+                           reverse_dirs: Optional[Sequence[bool]] = None,
+                           u_tile: int = 1,
+                           valid_len: Optional[int] = None):
+    """The plain version of K2: the explicit adjoint of the scan.
+
+    From the inputs, the tile-entry ``states`` and gy it recomputes each
+    tile's states and walks the tile backwards with
+    ``dh_t = C_t gy_t + a_{t+1} dh_{t+1}``, as K2 does. Returns
+    ``(du, ddelta, dA, dB, dC, dD, dbias)`` in the dtypes of their primals
+    (dD and dbias None where D and delta_bias are); see
+    ``csrc/selective_scan_bwd.cu`` for the formulas.
+    """
+    b, d, l = delta.shape
+    g = B.shape[1]
+    dpg = d // g
+    A4 = A.float().reshape(g, dpg, -1)
+    gy = gy.float()
+    du, ddt, dA, dB, dC = [], [], [], [], []
+    groups = _groups_in_order(u, delta, B, C, delta_bias, delta_softplus,
+                              reverse_dirs, u_tile, valid_len)
+    for k, grp in enumerate(groups):
+        uu, dt, Bg, Cg = grp["u"], grp["dt"], grp["B"], grp["C"]
+        gyg = gy[:, k * dpg:(k + 1) * dpg]
+        if grp["rev"]:
+            gyg = gyg.flip(-1)
+        a_k = A4[k]
+        starts = _tile_starts(l, grp["rev"]) + [l]
+        out = {name: [None] * l for name in ("du", "ddt", "dB", "dC")}
+        dA_k = torch.zeros_like(a_k)
+        carry = torch.zeros_like(states[:, :dpg, 0])
+        for t in reversed(range(len(starts) - 1)):
+            j0, j1 = starts[t], starts[t + 1]
+            h = states[:, k * dpg:(k + 1) * dpg, t].float()
+            h_prev, decay = [], []
+            for j in range(j0, j1):
+                a = torch.exp(dt[..., j, None] * a_k)
+                h_prev.append(h)
+                decay.append(a)
+                h = a * h + (dt[..., j, None] * uu[..., j, None]) \
+                    * Bg[:, None, :, j]
+            for j in reversed(range(j0, j1)):
+                hp, a = h_prev[j - j0], decay[j - j0]
+                dtu = dt[..., j, None] * uu[..., j, None]
+                h_t = a * hp + dtu * Bg[:, None, :, j]
+                dh = Cg[:, None, :, j] * gyg[..., j, None] + carry
+                carry = a * dh
+                dA_k = dA_k + (dh * hp * a * dt[..., j, None]).sum(0)
+                out["du"][j] = (dh * dt[..., j, None] * Bg[:, None, :, j]
+                                ).sum(-1)
+                out["ddt"][j] = (dh * (hp * a * a_k + uu[..., j, None]
+                                       * Bg[:, None, :, j])).sum(-1)
+                out["dB"][j] = (dh * dtu).sum(1)
+                out["dC"][j] = (h_t * gyg[..., j, None]).sum(1)
+        parts = {name: torch.stack(v, dim=-1) for name, v in out.items()}
+        parts["ddt"] = parts["ddt"] * grp["fac"]
+        if grp["rev"]:
+            parts = {name: v.flip(-1) for name, v in parts.items()}
+        du.append(parts["du"])
+        ddt.append(parts["ddt"])
+        dB.append(parts["dB"])
+        dC.append(parts["dC"])
+        dA.append(dA_k)
+    du = torch.cat(du, dim=1)
+    ddelta = torch.cat(ddt, dim=1)
+    u_full = u.float() if u_tile == 1 else torch.cat([u.float()] * u_tile, 1)
+    dD = None
+    if D is not None:
+        du = du + gy * D.float()[None, :, None]
+        dD = (gy * u_full).sum((0, 2))
+    if u_tile > 1:
+        du = du.reshape(b, u_tile, d // u_tile, l).sum(1)
+    dbias = ddelta.sum((0, 2)) if delta_bias is not None else None
+    return (du.to(u.dtype), ddelta.to(delta.dtype), torch.cat(dA, dim=0),
+            torch.stack(dB, dim=1).to(B.dtype),
+            torch.stack(dC, dim=1).to(C.dtype), dD, dbias)
+
+
+class _KernelScan(torch.autograd.Function):
+    """K1 forward, K2 backward: the counterpart of the JAX package's
+    ``custom_vjp`` around its scan kernels (``pallas_scan.py:1585-1648``)."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, return_last_state,
+                kw):
+        y, last, states = scan_cuda.selective_scan_fwd(
+            u, delta, A, B, C, D, delta_bias,
+            return_last_state=return_last_state, return_states=True, **kw)
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, states)
+        ctx.kw = {k: v for k, v in kw.items() if k != "out_dtype"}
+        if return_last_state:
+            ctx.mark_non_differentiable(last)
+            return y, last
+        return y
+
+    @staticmethod
+    def backward(ctx, gy, *_):
+        u, delta, A, B, C, D, delta_bias, states = ctx.saved_tensors
+        grads = scan_cuda.selective_scan_bwd(
+            u, delta, A, B, C, D, delta_bias, states, gy.contiguous(),
+            **ctx.kw)
+        return (*grads, None, None)
+
+
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    D: Optional[torch.Tensor] = None,
@@ -118,10 +309,17 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown selective-scan impl {impl!r}")
     if impl == "auto" and u.is_cuda:
-        return scan_cuda.selective_scan_fwd(
-            u, delta, A, B, C, D, delta_bias, delta_softplus=delta_softplus,
-            reverse_dirs=reverse_dirs, u_tile=u_tile, out_dtype=out_dtype,
-            valid_len=valid_len, return_last_state=return_last_state)
+        kw = dict(delta_softplus=delta_softplus, reverse_dirs=reverse_dirs,
+                  u_tile=u_tile, out_dtype=out_dtype, valid_len=valid_len)
+        if torch.is_grad_enabled() and any(
+                x is not None and x.requires_grad
+                for x in (u, delta, A, B, C, D, delta_bias)):
+            return _KernelScan.apply(u, delta, A, B, C, D, delta_bias,
+                                     return_last_state, kw)
+        y, last, _ = scan_cuda.selective_scan_fwd(
+            u, delta, A, B, C, D, delta_bias,
+            return_last_state=return_last_state, **kw)
+        return (y, last) if return_last_state else y
 
     g = B.shape[1]
     if u_tile > 1:

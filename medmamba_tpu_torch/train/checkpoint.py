@@ -1,13 +1,22 @@
-"""Inference-side checkpoint loading for the PyTorch port.
+"""Checkpoints of the PyTorch port: ``.pth`` files in the reference schema.
 
-Counterpart of ``restore_params`` in ``medmamba_tpu/train/checkpoint.py``. The
-port reads ``.pth`` files in the reference payload schema ({model_state_dict,
-num_classes, class_indices, epoch, best_acc, ...}) or a bare state dict.
+Counterpart of ``medmamba_tpu/train/checkpoint.py`` without Orbax. A
+training checkpoint is one ``.pth`` holding ``epoch``, ``model_state_dict``,
+``optimizer_state_dict``, ``best_acc``, ``num_classes`` and
+``class_indices`` (the reference train.py's payload). ``restore_params``
+also reads a bare state dict. Files are loaded with ``weights_only=True``:
+tensors and plain containers only, no arbitrary unpickling.
+
+Crash safety, as the JAX package keeps it: a save writes ``path + ".tmp"``
+and replaces ``path`` with it in one rename, so a crash leaves the old file
+or the new one, never half of one; the training CLI deletes a superseded
+best only after the new best has been renamed into place.
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -17,9 +26,8 @@ META_KEYS = ("epoch", "best_acc", "num_classes", "class_indices")
 def restore_params(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
     """(state_dict on the CPU, meta) from a ``.pth`` file.
 
-    Loaded with ``weights_only=True``: tensors and plain containers only, no
-    arbitrary unpickling. An Orbax checkpoint directory of the JAX package
-    cannot be read without JAX and raises.
+    An Orbax checkpoint directory of the JAX package cannot be read without
+    JAX and raises.
     """
     if os.path.isdir(path):
         raise ValueError(
@@ -32,3 +40,50 @@ def restore_params(path: str) -> Tuple[Dict[str, torch.Tensor], Dict]:
         meta = {k: payload[k] for k in META_KEYS if k in payload}
         return payload["model_state_dict"], meta
     return payload, {}
+
+
+def save_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, *, epoch: int,
+                    best_acc: float, num_classes: int,
+                    class_indices: Dict) -> None:
+    """Write a training checkpoint to ``path`` atomically (see above)."""
+    payload = {
+        "epoch": int(epoch),
+        "model_state_dict": {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()},
+        "optimizer_state_dict": optimizer.state_dict(),
+        "best_acc": float(best_acc),
+        "num_classes": int(num_classes),
+        "class_indices": dict(class_indices),
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def delete_checkpoint(path: Optional[str]) -> None:
+    """Remove a superseded checkpoint; call it only once the file that
+    replaces it is in place."""
+    if path and os.path.exists(path):
+        os.remove(path)
+
+
+def restore_checkpoint(path: str, model: torch.nn.Module,
+                       optimizer: Optional[torch.optim.Optimizer] = None
+                       ) -> Dict:
+    """Load a training checkpoint into ``model`` (strictly) and, when given,
+    ``optimizer``; returns the meta (epoch, best_acc, num_classes,
+    class_indices)."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model_state_dict"], strict=True)
+    if optimizer is not None:
+        optimizer.load_state_dict(payload["optimizer_state_dict"])
+    return {k: payload[k] for k in META_KEYS if k in payload}
+
+
+def save_class_indices(save_dir: str, class_indices: Dict) -> str:
+    """The ``class_indices.json`` sidecar beside the checkpoints."""
+    p = os.path.join(save_dir, "class_indices.json")
+    with open(p, "w") as f:
+        json.dump({str(k): v for k, v in class_indices.items()}, f, indent=4)
+    return p

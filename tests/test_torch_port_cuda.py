@@ -1,17 +1,25 @@
-"""The CUDA selective-scan kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
-Marked ``cuda``: each test skips where torch sees no GPU. On a machine with
-one: ``python -m pytest tests/test_torch_port_cuda.py -q``. Tolerances:
-float32 output 1e-4 (the two differ only in the order of float32 operations
-and fused multiply-adds); bfloat16 output 1e-2 (its last rounding, 2^-8
-relative).
+K1 (selective-scan forward, with its tile-entry states), K2 (its backward)
+and K5 (flip + rotation). Marked ``cuda``: each test skips where torch sees
+no GPU. On a machine with one: ``python -m pytest --noconftest
+tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
+differ only in the order of float32 operations and fused multiply-adds;
+K2's gradients relative to each gradient's largest entry, since its
+atomics sum in a varying order); bfloat16 outputs 1e-2 (their last
+rounding, 2^-8 relative); K5 exact.
 """
+import math
+
 import pytest
 import torch
 
 from medmamba_tpu_torch.models import vssm as tv
-from medmamba_tpu_torch.ops import scan_cuda
-from medmamba_tpu_torch.ops.selective_scan import selective_scan
+from medmamba_tpu_torch.ops import rotate, scan_cuda
+from medmamba_tpu_torch.ops.selective_scan import (selective_scan,
+                                                   selective_scan_bwd_ref,
+                                                   selective_scan_states_ref)
+from medmamba_tpu_torch.train.trainer import cross_entropy
 from medmamba_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -81,3 +89,127 @@ def test_model_runs_the_kernel_twice_per_block(cuda):
         want = ref(x)
     assert scan_cuda.LAUNCHES == 2 * 3
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+BWD_CASES = {
+    "forward": dict(),
+    "reverse": dict(reverse_dirs=(True, True)),
+    "mixed": dict(reverse_dirs=(False, True)),
+    "valid_len": dict(reverse_dirs=(True, True), valid_len=131),
+    "u_tile": dict(u_tile=2, reverse_dirs=(False, True)),
+    "odd_channels": dict(dpg=13),
+    "bf16": dict(dtype=torch.bfloat16, out_dtype=torch.bfloat16,
+                 reverse_dirs=(True, True)),
+    # the two mixed instantiations: float32 in with a bfloat16 gy, and
+    # bfloat16 in with a float32 gy
+    "fp32_in_bf16_gy": dict(out_dtype=torch.bfloat16),
+    "bf16_in_fp32_gy": dict(dtype=torch.bfloat16, reverse_dirs=(False, True)),
+    "no_skip_no_bias": dict(skip=False),
+}
+
+
+def _rel_close(got, want, tol):
+    scale = want.float().abs().max().clamp_min(1e-30)
+    err = ((got.float() - want.float()).abs().max() / scale).item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_states_and_backward_match_plain_versions(cuda, case):
+    kw = dict(BWD_CASES[case])
+    shape = {k: kw.pop(k) for k in ("dpg", "dtype") if k in kw}
+    skip = kw.pop("skip", True)
+    x = _inputs(cuda, u_tile=kw.get("u_tile", 1), **shape)
+    if not skip:
+        x["D"] = x["delta_bias"] = None
+    out_dtype = kw.pop("out_dtype", None)
+    y, _, states = scan_cuda.selective_scan_fwd(
+        **x, delta_softplus=True, out_dtype=out_dtype, return_states=True,
+        **kw)
+    want_states = selective_scan_states_ref(
+        x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"], True,
+        kw.get("reverse_dirs"), kw.get("u_tile", 1), kw.get("valid_len"))
+    torch.testing.assert_close(states, want_states, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gy = torch.randn(y.shape, generator=gen, device=cuda).to(y.dtype)
+    args = [x[k] for k in NAMES]
+    got = scan_cuda.selective_scan_bwd(*args, states, gy, delta_softplus=True,
+                                       **kw)
+    want = selective_scan_bwd_ref(*args, want_states, gy,
+                                  delta_softplus=True, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        tol = 1e-2 if g.dtype == torch.bfloat16 else 1e-4
+        _rel_close(g, w, tol)
+
+
+def test_autograd_runs_k1_then_k2(cuda):
+    x = _inputs(cuda)
+    xk = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+    xr = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+    kw = dict(delta_softplus=True, reverse_dirs=(True, True))
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+    y = selective_scan(**xk, **kw)
+    y.backward(torch.ones_like(y))
+    assert (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES) == (1, 1)
+    yr = selective_scan(**xr, impl="ref", **kw)
+    yr.backward(torch.ones_like(yr))
+    for k in NAMES:
+        _rel_close(xk[k].grad, xr[k].grad, 1e-4)
+
+
+def test_forward_wrapper_refuses_to_drop_a_gradient(cuda):
+    x = _inputs(cuda)
+    x["u"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="backward"):
+        scan_cuda.selective_scan_fwd(**x, delta_softplus=True)
+
+
+@pytest.mark.parametrize("size", [28, 224])
+def test_rotation_kernel_matches_plain_version_exactly(cuda, size):
+    gen = torch.Generator(device=cuda).manual_seed(size)
+    x = torch.randn(6, size, size, 3, generator=gen, device=cuda)
+    angles = (2 * torch.rand(6, generator=gen, device=cuda) - 1) \
+        * math.radians(10)
+    flip = torch.rand(6, generator=gen, device=cuda) < 0.5
+    rotate.LAUNCHES = 0
+    got = rotate.rotate_flip(x, angles, flip)
+    assert rotate.LAUNCHES == 1
+    want = rotate.rotate_flip_ref(x, torch.sin(angles), torch.cos(angles),
+                                  flip)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_train_step_through_the_kernels_matches_the_plain_scan(cuda):
+    """Float32 (TF32 off): the gradients of one training forward and
+    backward through K1 + K2 against autograd through the plain loop,
+    relative to each parameter's largest gradient (see below for the
+    gradients that are zero in exact arithmetic); two K1 and two K2
+    launches per block."""
+    kw = dict(num_classes=3, depths=(1, 2), dims=(16, 32),
+              drop_path_rate=0.0)
+    model = tv.VSSM(**kw).to(cuda).train()
+    ref = tv.VSSM(**kw, scan_impl="ref").to(cuda).train()
+    ref.load_state_dict(model.state_dict())
+    x = torch.randn(4, 40, 40, 3, device=cuda)
+    labels = torch.tensor([0, 2, 1, -1], device=cuda)
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+    cross_entropy(model(x, labels >= 0), labels).backward()
+    assert (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES) == (6, 6)
+    cross_entropy(ref(x, labels >= 0), labels).backward()
+    assert (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES) == (6, 6)
+    want = {n: p.grad for n, p in ref.named_parameters()}
+    top = max(g.abs().max().item() for g in want.values())
+    for name, p in model.named_parameters():
+        if want[name].abs().max() >= 1e-3 * top:
+            _rel_close(p.grad, want[name], 1e-4)
+        else:
+            # zero in exact arithmetic (a bias in front of a BatchNorm):
+            # both sides hold rounding noise, bounded against the model's
+            # largest gradient
+            assert (p.grad - want[name]).abs().max() <= 1e-4 * top, name

@@ -42,11 +42,6 @@ def test_preprocess_matches_jax(src):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_preprocess_augment_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        preprocess(torch.from_numpy(_images(0, 1, 8)), size=8, augment=True)
-
-
 @pytest.mark.parametrize("src", [28, 48])
 def test_slice_probabilities_match_jax(src):
     imgs = _images(1, 2, src)
