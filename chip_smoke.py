@@ -7,9 +7,11 @@ Run from the root of a checkout, on a machine with a card:
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit;
-  2. build: the kernels K1 (selective-scan forward), K2 (its backward) and
-     K5 (flip + rotation) from medmamba_tpu_torch/csrc/, one nvcc for each
-     source, all started together; their registers, shared memory, spills;
+  2. build: the kernels K1 (selective-scan forward), K2 (its backward), K3
+     and K4 (the doubling scan that MEDMAMBA_SCAN_KERNEL=hillis selects, and
+     its backward) and K5 (flip + rotation) from medmamba_tpu_torch/csrc/,
+     one nvcc for each source, all started together; their registers,
+     shared memory, spills;
   3. K1 against its plain PyTorch version on the card, at the four
      medmamba_t stage shapes (batch 64), forward and reverse, float32 and
      bfloat16 inputs, with valid_len and with the last state; times of the
@@ -42,11 +44,32 @@ Phases, in order; any failure exits non-zero:
  10. timing: train-step throughput at 224^2, batch 64 on a resident uint8
      batch, bfloat16 blocks with augmentation (``bench.py``'s
      configuration) and float32 with augmentation, and the device time per
-     step by kernel family from ``torch.profiler``.
-The last line is the JSON ``{"ok": true, "device": {...}}``.
+     step by kernel family from ``torch.profiler``;
+ 11. K3 against its plain version at the four stage shapes (batch 64),
+     float32 and bfloat16 inputs (every length ends in a short 128-step
+     chunk): y, the chunk-entry states and the last state; one reverse
+     call with valid_len through the dispatcher under hillis against the
+     plain sequential scan; K3's time per stage beside its bound and the
+     plain version's;
+ 12. K4 against its plain version at the same shapes, float32 and bfloat16
+     inputs; its time per stage;
+ 13. the serving path under hillis: ``cli.evaluate`` with exactly 20 K3
+     launches per batch and no other scan kernel; one batch's logits
+     against the same weights on the default (ssd) path;
+ 14. the training path under hillis: ``cli.train`` as in phase 8 with
+     exactly 20 K3, 20 K4 and 1 K5 launches per step;
+ 15. model gradients under hillis: one float32 forward through K3, its
+     backward through K4 against the same backward through K4's plain
+     version, per parameter;
+ 16. timing under hillis: the eval forward and the bf16 train step beside
+     the ssd numbers, with their device time by kernel family.
+The line before the last lists every kernel of the port (K1, K2, K5, K3,
+K4) with its launches, times and bound; the last line is the JSON
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -109,10 +132,32 @@ INPUT_NUDGE = 2.0 ** -20
 # ddelta, and the dD and dbias sums (3): 11. K2 as written does more (a
 # second exponential, the shuffle trees); the bound counts only the need.
 K2_OPS_DNT, K2_OPS_DT, K2_EXPS_DNT = 19, 11, 1
+# K3 and K4 compute what K1 and K2 compute, so their bounds count the same
+# need. The doubling costs more: per (b, d, n, t) and level, one
+# multiply-add and one multiply (3 operations), over log2(128) = 7 levels.
+# K3 does the decay and input (3), 7 levels (21) and y's multiply-add (2):
+# 26 per (b, d, n, t). K4 does the adjoint's 19 plus two doublings (42): 61.
+HILLIS_CHUNK = 128
+DOUBLING_OPS_K3, DOUBLING_OPS_K4 = 26, 61
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def scan_kernel(name: str):
+    """Within the block ``MEDMAMBA_SCAN_KERNEL`` is ``name``: the port reads
+    it at each scan call."""
+    old = os.environ.get("MEDMAMBA_SCAN_KERNEL")
+    os.environ["MEDMAMBA_SCAN_KERNEL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MEDMAMBA_SCAN_KERNEL")
+        else:
+            os.environ["MEDMAMBA_SCAN_KERNEL"] = old
 
 
 def back_to_back_ms(fn, inputs: list, reps: int, rounds: int = 3) -> float:
@@ -213,7 +258,7 @@ def phase_kernel_vs_plain():
             xs[:1], 1)
         del xs
         stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches_per_forward=2 * blocks, ms=k_ms,
+                           launches=2 * blocks, ms=k_ms,
                            plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                            bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
         log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, "
@@ -249,14 +294,14 @@ def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / scale).item()
 
 
-def k2_costs(dpg: int, l: int):
+def k2_costs(dpg: int, l: int, tile: int = TILE):
     """Least times in ms of one K2 launch on the card, float32: (bytes,
     float32 operations, exp on the special-function units). Read once: u,
-    delta, gy (b, d, L), B and C (b, G, N, L), the states, A, D, bias;
-    written once: du and ddelta (b, d, L), dB and dC (b, G, N, L), dA, dD,
-    dbias."""
+    delta, gy (b, d, L), B and C (b, G, N, L), the states (one per
+    ``tile`` steps), A, D, bias; written once: du and ddelta (b, d, L), dB
+    and dC (b, G, N, L), dA, dD, dbias."""
     d = GROUPS * dpg
-    n_tiles = -(-l // TILE)
+    n_tiles = -(-l // tile)
     nbytes = 4 * (5 * BATCH * d * l + 4 * BATCH * GROUPS * N_STATE * l
                   + BATCH * d * n_tiles * N_STATE + 2 * d * N_STATE + 4 * d)
     ops = K2_OPS_DNT * BATCH * d * N_STATE * l + K2_OPS_DT * BATCH * d * l
@@ -345,7 +390,7 @@ def phase_backward_vs_plain():
             lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1, rounds=1)
         del sets
         stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches_per_step=2 * blocks, ms=k_ms,
+                           launches=2 * blocks, ms=k_ms,
                            plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                            bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
         log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms, plain "
@@ -413,9 +458,15 @@ def write_train_split(root: str) -> None:
         np.save(os.path.join(root, f"{split}_labels.npy"), labels)
 
 
-def phase_train_path(root: str):
+def expected_counts(**launches) -> dict:
+    """Launch counts with every kernel not named at 0."""
+    return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5")}
+
+
+def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
     """cli.train end to end, then cli.evaluate on its best checkpoint; the
-    launch counts of each."""
+    launch counts of each. ``fwd``/``bwd``: the scan kernels the path must
+    launch, 20 per forward and per backward, and no other scan kernel."""
     import numpy as np
     import torch
 
@@ -436,8 +487,9 @@ def phase_train_path(root: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    want = {"K1": LAUNCHES_PER_FORWARD * (steps + val_batches),
-            "K2": LAUNCHES_PER_FORWARD * steps, "K5": steps}
+    want = expected_counts(**{
+        fwd: LAUNCHES_PER_FORWARD * (steps + val_batches),
+        bwd: LAUNCHES_PER_FORWARD * steps, "K5": steps})
     log(f"  cli.train: {steps} steps + {val_batches} validation batches in "
         f"{wall:.2f} s wall, launches {counts}, loss {out['train_loss']}, "
         f"val acc {out['best_acc']}, {out['img_s']:.1f} img/s (first epoch, "
@@ -459,8 +511,8 @@ def phase_train_path(root: str):
     ev_counts = read_counts()
     log(f"  cli.evaluate on {os.path.basename(out['best_path'])}: launches "
         f"{ev_counts}")
-    if ev_counts != {"K1": LAUNCHES_PER_FORWARD * val_batches, "K2": 0,
-                     "K5": 0}:
+    if ev_counts != expected_counts(**{fwd: LAUNCHES_PER_FORWARD
+                                       * val_batches}):
         raise SystemExit(f"evaluate launches {ev_counts}")
     if probs.shape != (N_VAL, NUM_CLASSES) or not np.isfinite(probs).all():
         raise SystemExit(f"bad probabilities: shape {probs.shape}")
@@ -516,22 +568,7 @@ def phase_gradients():
     _, moved = grads(ref, nudged)
     torch.cuda.synchronize()
     del model, ref
-    top = max(g.abs().max().item() for g in want.values())
-    rows, zero_worst = [], 0.0
-    for name, w in want.items():
-        scale = w.abs().max().item()
-        if scale >= 1e-3 * top:
-            rows.append(((got[name] - w).abs().max().item() / scale, name))
-        else:
-            zero_worst = max(zero_worst,
-                             (got[name] - w).abs().max().item() / top)
-    rows.sort()
-    log(f"  K1 forward, K2 against its plain version in the backward: "
-        f"{len(rows)} gradients, median error {rows[len(rows) // 2][0]:.3e} "
-        f"of their scale, largest {rows[-1][0]:.3e} ({rows[-1][1]}; limit "
-        f"{TOL_GRAD_MODEL:g}); gradients zero in exact arithmetic "
-        f"{zero_worst:.3e} of the largest (limit {TOL_FP32:g}); loss "
-        f"{loss_k:.7f} and {loss_p:.7f}")
+    rows = check_model_grads("K1 forward, K2", got, want, loss_k, loss_p)
 
     # reading: K1 + K2 against the plain scan, beside how far the plain
     # model's own gradient moves when the input moves by a relative 2^-20
@@ -550,19 +587,45 @@ def phase_gradients():
     for err, sens, name in reading[::-1][:3]:
         log(f"    {name}: {err:.3e} of its scale; the plain model's own "
             f"gradient moves {sens:.3e} under the input nudge")
-    if rows[-1][0] > TOL_GRAD_MODEL or zero_worst > TOL_FP32 \
-            or abs(loss_k - loss_p) > TOL_FP32 * max(1.0, loss_p):
-        raise SystemExit("gradients through K2 disagree with its plain "
-                         "version")
     if abs(loss_k - loss_r) > TOL_FP32 * max(1.0, loss_r):
         raise SystemExit("the loss through K1 disagrees with the plain scan")
     return rows[-1][0], reading[-1][0]
 
 
-def phase_train_timing():
+def check_model_grads(label: str, got: dict, want: dict, loss_k: float,
+                      loss_p: float) -> list:
+    """Each parameter's gradient through the kernel backward (``got``)
+    within TOL_GRAD_MODEL of its scale of the gradient through the plain
+    backward (``want``), under one forward; gradients below 1e-3 of the
+    model's largest (zero in exact arithmetic) within TOL_FP32 of that
+    largest. Returns the sorted (error, name) rows; exits on a failure."""
+    top = max(g.abs().max().item() for g in want.values())
+    rows, zero_worst = [], 0.0
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        if scale >= 1e-3 * top:
+            rows.append(((got[name] - w).abs().max().item() / scale, name))
+        else:
+            zero_worst = max(zero_worst,
+                             (got[name] - w).abs().max().item() / top)
+    rows.sort()
+    log(f"  {label} against its plain version in the backward: "
+        f"{len(rows)} gradients, median error {rows[len(rows) // 2][0]:.3e} "
+        f"of their scale, largest {rows[-1][0]:.3e} ({rows[-1][1]}; limit "
+        f"{TOL_GRAD_MODEL:g}); gradients zero in exact arithmetic "
+        f"{zero_worst:.3e} of the largest (limit {TOL_FP32:g}); loss "
+        f"{loss_k:.7f} and {loss_p:.7f}")
+    if rows[-1][0] > TOL_GRAD_MODEL or zero_worst > TOL_FP32 \
+            or abs(loss_k - loss_p) > TOL_FP32 * max(1.0, loss_p):
+        raise SystemExit(f"gradients through {label} disagree with the "
+                         "plain backward")
+    return rows
+
+
+def phase_train_timing(float32: bool = True):
     """Train-step throughput on a resident uint8 batch (bf16 + augmentation,
-    then float32 + augmentation) and the bf16 step's device time by kernel
-    family."""
+    then, with ``float32``, float32 + augmentation) and the bf16 step's
+    device time by kernel family."""
     import torch
 
     from medmamba_tpu_torch.models.registry import create_model
@@ -574,8 +637,8 @@ def phase_train_timing():
     labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen,
                            device="cuda")
     out = {}
-    for name, dtype in (("bf16+aug", torch.bfloat16),
-                        ("fp32+aug", torch.float32)):
+    configs = (("bf16+aug", torch.bfloat16), ("fp32+aug", torch.float32))
+    for name, dtype in configs[:2 if float32 else 1]:
         model = create_model("T", NUM_CLASSES, dtype=dtype, device="cuda",
                              generator=torch.Generator().manual_seed(SEED))
         opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
@@ -596,17 +659,312 @@ def phase_train_timing():
     return out, prof_line
 
 
+def k3_costs(dpg: int, l: int) -> dict:
+    """Least times in ms of one float32 K3 launch on the card. Bytes: u,
+    delta and y (b, d, L), B and C (b, G, N, L), the chunk-entry and last
+    states, A, D and bias, each once; operations: the need K1 counts (7 per
+    (b, d, n, t), 6 per (b, d, t)); ``doubling_ms``: the operations the
+    doubling form does instead (DOUBLING_OPS_K3 per (b, d, n, t))."""
+    d = GROUPS * dpg
+    bytes_ms, ops_ms, exp_ms = scan_costs(dpg, l)
+    states = 4 * BATCH * d * N_STATE * (-(-l // HILLIS_CHUNK) + 1)
+    return dict(bytes_ms=bytes_ms + states / PEAK_BYTES_PER_S * 1e3,
+                ops_ms=ops_ms, exp_ms=exp_ms,
+                doubling_ms=(DOUBLING_OPS_K3 * BATCH * d * N_STATE * l
+                             + 6 * BATCH * d * l)
+                / PEAK_FP32_OPS_PER_S * 1e3)
+
+
+def k4_costs(dpg: int, l: int) -> dict:
+    """As ``k3_costs`` for one float32 K4 launch: K2's bytes and need with
+    128-step chunk states; ``doubling_ms`` at DOUBLING_OPS_K4 per
+    (b, d, n, t)."""
+    d = GROUPS * dpg
+    bytes_ms, ops_ms, exp_ms = k2_costs(dpg, l, HILLIS_CHUNK)
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
+                doubling_ms=(DOUBLING_OPS_K4 * BATCH * d * N_STATE * l
+                             + K2_OPS_DT * BATCH * d * l)
+                / PEAK_FP32_OPS_PER_S * 1e3, exp_ms=exp_ms)
+
+
+def stage_row(si, dpg, l, blocks, k_ms, p_ms, costs) -> dict:
+    row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks, ms=k_ms,
+               plain_ms=p_ms, **costs)
+    row["bound_ms"] = max(costs["bytes_ms"], costs["ops_ms"])
+    log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.2f} ms, bound {row['bound_ms']:.4f} ms (bytes "
+        f"{costs['bytes_ms']:.4f}, fp32 ops needed {costs['ops_ms']:.4f}, "
+        f"done by the doubling {costs['doubling_ms']:.4f}, exp units "
+        f"{costs['exp_ms']:.4f}), x{2 * blocks}")
+    return row
+
+
+def per_pass(stages: list) -> dict:
+    """Stage rows summed over the 20 launches of a forward or a step."""
+    out = {k: sum(s[k] * s["launches"] for s in stages)
+           for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "doubling_ms",
+                     "exp_ms") if k in stages[0]}
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
+                       else "operations")
+    return out
+
+
+def phase_hillis_fwd_vs_plain():
+    """K3 against its plain version at the stage shapes, float32 and
+    bfloat16 inputs; one reverse call with valid_len through the dispatcher
+    against the plain sequential scan; K3 timed per stage."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_hillis
+    from medmamba_tpu_torch.ops.selective_scan import (
+        selective_scan, selective_scan_hillis_ref)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    kernel = scan_hillis.selective_scan_hillis_fwd
+    max_err, stages = 0.0, []
+    for si, (dpg, l, blocks) in enumerate(STAGES):
+        for label, dtype in (("fp32", torch.float32),
+                             ("bf16 in", torch.bfloat16)):
+            x = scan_inputs(dpg, l, dtype, gen)
+            got = kernel(**x, delta_softplus=True)
+            want = selective_scan_hillis_ref(**x, delta_softplus=True)
+            torch.cuda.synchronize()
+            errs = {}
+            for part, g, w in zip(("y", "states", "last"), got, want):
+                torch.testing.assert_close(g, w, rtol=TOL_FP32,
+                                           atol=TOL_FP32)
+                errs[part] = (g - w).abs().max().item()
+            max_err = max(max_err, *errs.values())
+            log(f"  stage {si} D={GROUPS * dpg} L={l} {label}: max|err| "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f" (rtol = atol = {TOL_FP32:g})")
+        costs = k3_costs(dpg, l)
+        set_bytes = costs["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S
+        xs = [scan_inputs(dpg, l, torch.float32, gen)
+              for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
+        k_ms = back_to_back_ms(lambda x: kernel(**x, delta_softplus=True),
+                               xs, 20)
+        p_ms = back_to_back_ms(
+            lambda x: selective_scan_hillis_ref(**x, delta_softplus=True),
+            xs[:1], 1, rounds=1)
+        del xs
+        stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
+
+    # the SS2D padding pattern in reverse through the dispatcher: flipped
+    # around K3, valid_len as delta = -1e4 at the pad, y in float32
+    x = scan_inputs(STAGES[0][0], 3200, torch.float32, gen)
+    kw = dict(reverse_dirs=(True, True), valid_len=3136,
+              return_last_state=True)
+    reset_counts()
+    with scan_kernel("hillis"):
+        y, last = selective_scan(**x, delta_softplus=True,
+                                 out_dtype=torch.bfloat16, **kw)
+    counts = read_counts()
+    y_r, last_r = selective_scan(**x, delta_softplus=True, impl="ref", **kw)
+    torch.cuda.synchronize()
+    if counts != expected_counts(K3=1) or y.dtype != torch.float32:
+        raise SystemExit(f"the hillis dispatcher launched {counts} and gave "
+                         f"y in {y.dtype}")
+    torch.testing.assert_close(y, y_r, rtol=TOL_FP32, atol=TOL_FP32)
+    torch.testing.assert_close(last, last_r, rtol=TOL_FP32, atol=TOL_FP32)
+    err = max((y - y_r).abs().max().item(),
+              (last - last_r).abs().max().item())
+    log(f"  L=3200 {kw} through the dispatcher against the sequential "
+        f"scan: max|err| {err:.3e}, launches {counts}")
+    return stages, max(max_err, err)
+
+
+def phase_hillis_bwd_vs_plain():
+    """K4 against its plain version at the stage shapes (float32 and
+    bfloat16 inputs, K3's states), each gradient relative to its scale; K4
+    timed per stage."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_hillis
+    from medmamba_tpu_torch.ops.selective_scan import (
+        selective_scan_hillis_bwd_ref)
+
+    names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def operands(dpg, l, dtype):
+        x = scan_inputs(dpg, l, dtype, gen)
+        y, states, _ = scan_hillis.selective_scan_hillis_fwd(
+            **x, delta_softplus=True)
+        gy = torch.randn(y.shape, generator=gen, device="cuda")
+        return [x[k] for k in names], states, gy
+
+    def bwd(s, impl=scan_hillis.selective_scan_hillis_bwd):
+        args, states, gy = s
+        return impl(*args, states, gy, delta_softplus=True)
+
+    max_err, stages = 0.0, []
+    for si, (dpg, l, blocks) in enumerate(STAGES):
+        for label, dtype in (("fp32", torch.float32),
+                             ("bf16 in", torch.bfloat16)):
+            s = operands(dpg, l, dtype)
+            got = bwd(s)
+            want = bwd(s, selective_scan_hillis_bwd_ref)
+            torch.cuda.synchronize()
+            rels = {}
+            for name, g, w in zip(names, got, want):
+                if g.dtype != w.dtype or g.shape != w.shape:
+                    raise SystemExit(f"K4 {name}: {g.dtype} "
+                                     f"{tuple(g.shape)}, expected {w.dtype} "
+                                     f"{tuple(w.shape)}")
+                rels[name] = rel_err(g, w)
+                tol = TOL_FP32
+                if g.dtype == torch.bfloat16:
+                    tol = TOL_BF16_OUT
+                else:
+                    max_err = max(max_err, (g - w).abs().max().item())
+                if rels[name] > tol:
+                    raise SystemExit(f"K4 stage {si} {label} d{name}: "
+                                     f"relative error {rels[name]:.3e} "
+                                     f"above {tol:g}")
+            log(f"  stage {si} D={GROUPS * dpg} L={l} {label}: K4 "
+                + ", ".join(f"d{k} {v:.1e}" for k, v in rels.items())
+                + " of their scale")
+        costs = k4_costs(dpg, l)
+        set_bytes = costs["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S
+        sets = [operands(dpg, l, torch.float32)
+                for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
+        k_ms = back_to_back_ms(bwd, sets, 20)
+        p_ms = back_to_back_ms(
+            lambda s: bwd(s, selective_scan_hillis_bwd_ref), sets[:1], 1,
+            rounds=1)
+        del sets
+        stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
+    return stages, max_err
+
+
+def write_model_pth(model, path: str) -> None:
+    import torch
+
+    torch.save({"model_state_dict": {k: v.cpu() for k, v in
+                                     model.state_dict().items()},
+                "num_classes": NUM_CLASSES, "epoch": 0, "best_acc": 0.0,
+                "class_indices": {f"class_{i}": i
+                                  for i in range(NUM_CLASSES)}}, path)
+
+
+def phase_hillis_serving(root: str):
+    """cli.evaluate under hillis with exactly 20 K3 launches per batch and
+    no other scan kernel; one batch's float32 logits against the same
+    weights on the ssd path (both compute the exact recurrence)."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli import evaluate
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.models.registry import create_model
+
+    write_split(root)
+    model = create_model("T", NUM_CLASSES, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    pth = os.path.join(root, "medmamba_t.pth")
+    write_model_pth(model, pth)
+    n_batches = -(-N_IMAGES // BATCH)
+    with scan_kernel("hillis"):
+        reset_counts()
+        t0 = time.perf_counter()
+        cm, probs = evaluate.main(["--checkpoint_path", pth, "--data_dir",
+                                   root, "--batch_size", str(BATCH),
+                                   "--image_size", str(IMAGE), "--device",
+                                   "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    log(f"  evaluate under hillis: {N_IMAGES} images in {n_batches} batches, "
+        f"{wall:.2f} s wall, launches {counts}")
+    if counts != expected_counts(K3=LAUNCHES_PER_FORWARD * n_batches):
+        raise SystemExit(f"evaluate under hillis launched {counts}")
+    if probs.shape != (N_IMAGES, NUM_CLASSES) or not np.isfinite(probs).all() \
+            or cm.matrix.sum() != N_IMAGES:
+        raise SystemExit(f"bad probabilities: shape {probs.shape}")
+
+    images = np.load(os.path.join(root, "test_images.npy"))[:BATCH]
+    x = preprocess(torch.from_numpy(images).cuda(), size=IMAGE)
+    model.eval()
+    with torch.inference_mode():
+        with scan_kernel("hillis"):
+            got = model(x)
+        with scan_kernel("ssd"):
+            want = model(x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    log(f"  logits under hillis vs ssd (batch {BATCH}, float32, TF32 off): "
+        f"max|err| {err:.3e} (rtol = atol = {TOL_FP32:g})")
+    torch.testing.assert_close(got, want, rtol=TOL_FP32, atol=TOL_FP32)
+    return model, counts
+
+
+def phase_hillis_gradients():
+    """One float32 training forward of medmamba_t through K3, its backward
+    once through K4 and once through K4's plain version, per parameter."""
+    import torch
+
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS
+    from medmamba_tpu_torch.models.vssm import VSSM
+    from medmamba_tpu_torch.ops import scan_hillis
+    from medmamba_tpu_torch.ops.selective_scan import (
+        selective_scan_hillis_bwd_ref)
+    from medmamba_tpu_torch.train.trainer import cross_entropy
+
+    cfg = MODEL_CONFIGS["T"]
+    model = VSSM(num_classes=NUM_CLASSES, depths=cfg.depths, dims=cfg.dims,
+                 drop_path_rate=0.0,
+                 generator=torch.Generator().manual_seed(SEED))
+    model = model.cuda().train()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    x = torch.randn(GRAD_BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, NUM_CLASSES, (GRAD_BATCH,), generator=gen,
+                           device="cuda")
+    labels[-1] = -1
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def grads():
+        model.load_state_dict(state)
+        model.zero_grad()
+        loss = cross_entropy(model(x, labels >= 0), labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    with scan_kernel("hillis"):
+        reset_counts()
+        loss_k, got = grads()
+        counts = read_counts()
+        # the same K3 forward; _HillisScan's backward calls the plain adjoint
+        kernel_bwd = scan_hillis.selective_scan_hillis_bwd
+        scan_hillis.selective_scan_hillis_bwd = selective_scan_hillis_bwd_ref
+        try:
+            loss_p, want = grads()
+        finally:
+            scan_hillis.selective_scan_hillis_bwd = kernel_bwd
+    torch.cuda.synchronize()
+    del model
+    if counts != expected_counts(K3=LAUNCHES_PER_FORWARD,
+                                 K4=LAUNCHES_PER_FORWARD):
+        raise SystemExit(f"the hillis training forward launched {counts}")
+    return check_model_grads("K3 forward, K4", got, want, loss_k,
+                             loss_p)[-1][0]
+
+
 def reset_counts() -> None:
-    from medmamba_tpu_torch.ops import rotate, scan_cuda
+    from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
 
     scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = rotate.LAUNCHES = 0
+    scan_hillis.HILLIS_LAUNCHES = scan_hillis.HILLIS_BWD_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from medmamba_tpu_torch.ops import rotate, scan_cuda
+    from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
 
     return {"K1": scan_cuda.LAUNCHES, "K2": scan_cuda.BWD_LAUNCHES,
-            "K5": rotate.LAUNCHES}
+            "K3": scan_hillis.HILLIS_LAUNCHES,
+            "K4": scan_hillis.HILLIS_BWD_LAUNCHES, "K5": rotate.LAUNCHES}
 
 
 def write_split(root: str) -> None:
@@ -649,7 +1007,7 @@ def phase_main_path(root: str):
     launches = counts["K1"]
     log(f"  evaluate: {N_IMAGES} images in {n_batches} batches, "
         f"{wall:.2f} s wall, launches {counts}")
-    if counts != {"K1": LAUNCHES_PER_FORWARD * n_batches, "K2": 0, "K5": 0}:
+    if counts != expected_counts(K1=LAUNCHES_PER_FORWARD * n_batches):
         raise SystemExit(f"evaluate launched {counts}, expected "
                          f"{LAUNCHES_PER_FORWARD * n_batches} K1 only")
     if probs.shape != (N_IMAGES, NUM_CLASSES) or not np.isfinite(probs).all():
@@ -685,10 +1043,15 @@ def phase_main_path(root: str):
 
 # kernel families of the profile; the first match wins. cuDNN's convolution
 # kernels also carry "gemm" in their names, so convolution is tried first.
+FAMILY = {"K1": "selective_scan_fwd (K1)", "K2": "selective_scan_bwd (K2)",
+          "K3": "selective_scan_hillis_fwd (K3)",
+          "K4": "selective_scan_hillis_bwd (K4)", "K5": "rotate_flip (K5)"}
 FAMILIES = (
-    ("selective_scan_fwd (K1)", r"scan_fwd_kernel"),
-    ("selective_scan_bwd (K2)", r"scan_bwd_kernel"),
-    ("rotate_flip (K5)", r"rotate_flip_kernel"),
+    (FAMILY["K3"], r"hillis_fwd_kernel"),
+    (FAMILY["K4"], r"hillis_bwd_kernel"),
+    (FAMILY["K1"], r"scan_fwd_kernel"),
+    (FAMILY["K2"], r"scan_bwd_kernel"),
+    (FAMILY["K5"], r"rotate_flip_kernel"),
     ("convolution", r"conv|cudnn|fprop|winograd|implicit|nchw|nhwc"),
     ("matmul", r"gemm|gemv|cutlass|xmma|cublas|splitK"),
     ("layer_norm", r"layer_norm|LayerNorm"),
@@ -780,7 +1143,8 @@ def main() -> int:
               "(medmamba_tpu_torch/ is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from medmamba_tpu_torch.ops import cuda_build, rotate, scan_cuda
+    from medmamba_tpu_torch.ops import (cuda_build, rotate, scan_cuda,
+                                        scan_hillis)
 
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -793,7 +1157,8 @@ def main() -> int:
 
     log("phase 2: build")
     t0 = time.perf_counter()
-    sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE, rotate.SOURCE)
+    sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE, rotate.SOURCE,
+               scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE)
     libs = cuda_build.build(*sources)
     log(f"  built {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -815,10 +1180,8 @@ def main() -> int:
     log("phase 5: timing")
     fwd_ms, img_s, prof_line = phase_timing(model)
     del model
-    k1_device_ms = prof_line["family_ms_per_forward"].get(FAMILIES[0][0], 0.0)
-    per_fwd = {k: sum(s[k] * s["launches_per_forward"] for s in stages)
-               for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
-    per_fwd["bound_ms"] = max(per_fwd["bytes_ms"], per_fwd["ops_ms"])
+    k1_device_ms = prof_line["family_ms_per_forward"].get(FAMILY["K1"], 0.0)
+    per_fwd = per_pass(stages)
     log(f"  medmamba_t eval forward, 224^2, batch {BATCH}, float32 "
         f"without TF32: "
         f"{fwd_ms:.3f} ms, {img_s:.1f} img/s")
@@ -832,9 +1195,7 @@ def main() -> int:
 
     log("phase 6: K1 states and K2 against their plain versions")
     bwd_stages, k2_err = phase_backward_vs_plain()
-    per_step = {k: sum(s[k] * s["launches_per_step"] for s in bwd_stages)
-                for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
-    per_step["bound_ms"] = max(per_step["bytes_ms"], per_step["ops_ms"])
+    per_step = per_pass(bwd_stages)
     log(f"  K2 per step ({LAUNCHES_PER_FORWARD} launches): "
         f"{per_step['ms']:.4f} ms; bound {per_step['bound_ms']:.4f} ms "
         f"(bytes {per_step['bytes_ms']:.4f}, fp32 ops "
@@ -860,6 +1221,55 @@ def main() -> int:
     log("train_profile " + json.dumps(train_prof))
     log("k2_stages " + json.dumps(bwd_stages))
     log("k5 " + json.dumps(rot))
+
+    log("phase 11: K3 (hillis forward) against its plain version")
+    k3_stages, k3_err = phase_hillis_fwd_vs_plain()
+    k3 = per_pass(k3_stages)
+    log(f"  K3 per forward ({LAUNCHES_PER_FORWARD} launches): "
+        f"{k3['ms']:.4f} ms; bound {k3['bound_ms']:.4f} ms (bytes "
+        f"{k3['bytes_ms']:.4f}, fp32 ops needed {k3['ops_ms']:.4f}, done by "
+        f"the doubling {k3['doubling_ms']:.4f}); exp units "
+        f"{k3['exp_ms']:.4f} ms; plain {k3['plain_ms']:.1f} ms")
+
+    log("phase 12: K4 (hillis backward) against its plain version")
+    k4_stages, k4_err = phase_hillis_bwd_vs_plain()
+    k4 = per_pass(k4_stages)
+    log(f"  K4 per step ({LAUNCHES_PER_FORWARD} launches): "
+        f"{k4['ms']:.4f} ms; bound {k4['bound_ms']:.4f} ms (bytes "
+        f"{k4['bytes_ms']:.4f}, fp32 ops needed {k4['ops_ms']:.4f}, done by "
+        f"the doubling {k4['doubling_ms']:.4f}); exp units "
+        f"{k4['exp_ms']:.4f} ms; plain {k4['plain_ms']:.1f} ms")
+
+    log("phase 13: serving path under MEDMAMBA_SCAN_KERNEL=hillis "
+        "(cli.evaluate, medmamba_t 224^2 batch 64)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        model, hillis_eval_counts = phase_hillis_serving(root)
+
+    log("phase 14: training path under hillis (cli.train, medmamba_t 224^2 "
+        "batch 64, bf16 blocks, augmentation)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
+            scan_kernel("hillis"):
+        hillis_counts, _ = phase_train_path(root, "K3", "K4")
+
+    log("phase 15: model gradients through K4 against its plain version")
+    hillis_grad_err = phase_hillis_gradients()
+
+    log("phase 16: timing under hillis")
+    with scan_kernel("hillis"):
+        h_fwd_ms, h_img_s, h_prof = phase_timing(model)
+        del model
+        h_train, h_train_prof = phase_train_timing(float32=False)
+    h_fam = h_train_prof["family_ms_per_step"]
+    log(f"  eval forward, float32 without TF32: hillis {h_fwd_ms:.3f} ms, "
+        f"{h_img_s:.1f} img/s; ssd {fwd_ms:.3f} ms, {img_s:.1f} img/s")
+    log(f"  train step bf16+aug: hillis {h_train['bf16+aug']['ms']:.3f} ms, "
+        f"{h_train['bf16+aug']['img_s']:.1f} img/s; ssd "
+        f"{train_timing['bf16+aug']['ms']:.3f} ms, "
+        f"{train_timing['bf16+aug']['img_s']:.1f} img/s")
+    log("hillis_profile " + json.dumps(h_prof))
+    log("hillis_train_profile " + json.dumps(h_train_prof))
+    log("k3_stages " + json.dumps(k3_stages))
+    log("k4_stages " + json.dumps(k4_stages))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -871,12 +1281,10 @@ def main() -> int:
         "launches_serving_path": launches,
         "max_abs_err": max_err,
         "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
-        "bound_by": ("bytes" if per_fwd["bytes_ms"] >= per_fwd["ops_ms"]
-                     else "operations"),
+        "bound_ms": per_fwd["bound_ms"], "bound_by": per_fwd["bound_by"],
         "library_ms": None,
         "profiled_ms_per_forward": k1_device_ms,
-        "profiled_ms_per_train_step": fam.get(FAMILIES[0][0], 0.0),
+        "profiled_ms_per_train_step": fam.get(FAMILY["K1"], 0.0),
         "eval_img_s": img_s}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
@@ -885,11 +1293,9 @@ def main() -> int:
         "launches_per_step": train_counts["K2"] / train_steps,
         "max_abs_err": k2_err,
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
-        "bound_ms": per_step["bound_ms"],
-        "bound_by": ("bytes" if per_step["bytes_ms"] >= per_step["ops_ms"]
-                     else "operations"),
+        "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
         "library_ms": None,
-        "profiled_ms_per_train_step": fam.get(FAMILIES[1][0], 0.0),
+        "profiled_ms_per_train_step": fam.get(FAMILY["K2"], 0.0),
         "model_grad_rel_err": grad_err,
         "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan}, {
         "name": "rotate_flip", "route": "cuda",
@@ -902,8 +1308,32 @@ def main() -> int:
         "bound_ms": rot[IMAGE]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
         "ms_28": rot[28]["ms"],
-        "profiled_ms_per_train_step": fam.get(FAMILIES[2][0], 0.0)}],
-        "train_img_s": {k: v["img_s"] for k, v in train_timing.items()}}))
+        "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0)}, {
+        "name": "selective_scan_hillis_fwd", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_fwd.cu",
+        "replaces": "medmamba_tpu/ops/pallas_scan.py:877",
+        "launches": hillis_counts["K3"],
+        "launches_serving_path": hillis_eval_counts["K3"],
+        "max_abs_err": k3_err,
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+        "library_ms": None, "doubling_ops_ms": k3["doubling_ms"],
+        "profiled_ms_per_forward": h_prof["family_ms_per_forward"].get(
+            FAMILY["K3"], 0.0),
+        "profiled_ms_per_train_step": h_fam.get(FAMILY["K3"], 0.0),
+        "eval_img_s": h_img_s}, {
+        "name": "selective_scan_hillis_bwd", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_bwd.cu",
+        "replaces": "medmamba_tpu/ops/pallas_scan.py:1275",
+        "launches": hillis_counts["K4"],
+        "max_abs_err": k4_err,
+        "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+        "library_ms": None, "doubling_ops_ms": k4["doubling_ms"],
+        "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
+        "model_grad_rel_err": hillis_grad_err}],
+        "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
+        "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

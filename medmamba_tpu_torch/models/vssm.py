@@ -254,10 +254,12 @@ class SS2D(nn.Module):
     with silu(z) -> out_proj. Directions 2/3 are reversals of 0/1, so the scan
     runs twice on the same (B, 2, D, L) tensor: forward, then in reverse.
 
-    ``scan_impl``: "auto" (the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor) or "ref" (the plain version on any device).
+    ``scan_impl``: "auto" (the CUDA kernels on a CUDA tensor, the plain
+    version on a CPU tensor) or "ref" (the plain version on any device). On
+    a CUDA tensor ``MEDMAMBA_SCAN_KERNEL`` picks the kernels at each call, as
+    in the JAX package: ``ssd`` (default, K1/K2) or ``hillis`` (K3/K4).
     ``scan_tau`` is accepted for the JAX package's signature and does nothing:
-    both scans here are exact.
+    every scan here is exact.
     """
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
@@ -333,7 +335,9 @@ class SS2D(nn.Module):
                 Ds[ks].reshape(-1), delta_bias=bias[ks].reshape(-1),
                 delta_softplus=True, impl=self.scan_impl,
                 reverse_dirs=(rev, rev), out_dtype=dt_)
-            return y.reshape(b, 2, d_inner, l)
+            # the block dtype before the merge, as the JAX model casts
+            # (its vssm.py:442): the hillis scan returns float32 y
+            return y.to(dt_).reshape(b, 2, d_inner, l)
 
         y = cross_merge_fr(scan_pair(0, False), scan_pair(1, True), h, w)
         # out_norm in float32 whatever the block dtype (the JAX model's

@@ -1,1 +1,1 @@
-"""Selective scan (plain PyTorch and the CUDA kernel), CrossScan/CrossMerge."""
+"""Selective scan (plain PyTorch and CUDA kernels), CrossScan/CrossMerge."""

@@ -17,20 +17,26 @@ and the recurrence (per batch, channel d, state n):
 
 ``selective_scan_ref`` is the plain version: a sequential float32 loop over L,
 as ``selective_scan_seq`` is in the JAX package. ``selective_scan`` is the
-entry point: on a CUDA tensor it launches the hand-written kernels
-(``ops/scan_cuda.py``: K1 forward, K2 as its backward), on a CPU tensor it
-runs the plain version and autograd differentiates its loop.
-``selective_scan_states_ref`` and ``selective_scan_bwd_ref`` are the plain
-versions of K1's tile-entry states and of K2.
+entry point: on a CUDA tensor it launches the hand-written kernels that
+``MEDMAMBA_SCAN_KERNEL`` selects (``ssd``, the default: ``ops/scan_cuda.py``,
+K1 forward and K2 as its backward; ``hillis``: ``ops/scan_hillis.py``, K3
+forward and K4 as its backward), on a CPU tensor it runs the plain version
+and autograd differentiates its loop. ``selective_scan_states_ref`` and
+``selective_scan_bwd_ref`` are the plain versions of K1's tile-entry states
+and of K2; ``selective_scan_hillis_ref`` and
+``selective_scan_hillis_bwd_ref`` those of K3 and K4.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from medmamba_tpu_torch.ops import scan_cuda
+from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+
+KERNELS = ("ssd", "hillis")
 
 
 def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -271,6 +277,250 @@ class _KernelScan(torch.autograd.Function):
         return (*grads, None, None)
 
 
+def _kernel_impl() -> str:
+    """The kernel pair a CUDA tensor's scan runs: ``MEDMAMBA_SCAN_KERNEL``,
+    read at each call as the JAX package reads it (``pallas_scan.py:924``):
+    ``ssd`` (the default; K1/K2) or ``hillis`` (K3/K4)."""
+    impl = os.environ.get("MEDMAMBA_SCAN_KERNEL", "ssd")
+    if impl not in KERNELS:
+        raise ValueError(f"MEDMAMBA_SCAN_KERNEL={impl!r}: expected one of "
+                         f"{KERNELS}")
+    return impl
+
+
+def _pow2ceil(x: int) -> int:
+    return 1 << max(0, x - 1).bit_length()
+
+
+def _shift_r(x: torch.Tensor, step: int, fill: float) -> torch.Tensor:
+    pad = torch.full(x.shape[:-1] + (step,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([pad, x[..., :-step]], dim=-1)
+
+
+def _shift_l(x: torch.Tensor, step: int, fill: float) -> torch.Tensor:
+    pad = torch.full(x.shape[:-1] + (step,), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x[..., step:], pad], dim=-1)
+
+
+def _fwd_chunk_scan(a, x, h0):
+    """Inclusive scan of h_t = a_t h_{t-1} + x_t over the last axis by
+    Hillis-Steele doubling, the entry state h0 folded into the first step:
+    ``pallas_scan.py:164 _fwd_chunk_scan``."""
+    x = torch.cat([x[..., :1] + a[..., :1] * h0[..., None], x[..., 1:]], -1)
+    acc = a
+    span = _pow2ceil(x.shape[-1])
+    step = 1
+    while step < span:
+        x = x + acc * _shift_r(x, step, 0.0)
+        step *= 2
+        if step < span:
+            acc = acc * _shift_r(acc, step // 2, 1.0)
+    return x
+
+
+def _bwd_chunk_scan(a, q, carry):
+    """Suffix scan X_t = q_t + a_{t+1} X_{t+1} by doubling, the carry of
+    the chunk after folded into the last step: ``pallas_scan.py:190
+    _bwd_chunk_scan``."""
+    q = torch.cat([q[..., :-1], q[..., -1:] + carry[..., None]], -1)
+    p = _shift_l(a, 1, 1.0)
+    span = _pow2ceil(q.shape[-1])
+    step = 1
+    while step < span:
+        q = q + p * _shift_l(q, step, 0.0)
+        step *= 2
+        if step < span:
+            p = p * _shift_l(p, step // 2, 1.0)
+    return q
+
+
+def _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus, valid_len):
+    """Per 128-step chunk, in order, K3's float32 operands in the grouped
+    layout (b, G, dpg, [N,] T): a dict of dt, its derivative ``sig`` by
+    delta, u, the decays a, the inputs x = dt u B, B, C and the live mask
+    (identity steps past ``valid_len``)."""
+    b, d, l = delta.shape
+    g = B.shape[1]
+    dpg = d // g
+    xd = delta.float()
+    if delta_bias is not None:
+        xd = xd + delta_bias.float()[None, :, None]
+    if delta_softplus:
+        dt, sig = F.softplus(xd), torch.sigmoid(xd)
+    else:
+        dt, sig = xd, torch.ones_like(xd)
+    live = torch.arange(l, device=xd.device) < (
+        l if valid_len is None else valid_len)
+    A5 = A.float().reshape(1, g, dpg, -1, 1)
+    dt4, sig4 = dt.reshape(b, g, dpg, l), sig.reshape(b, g, dpg, l)
+    u4 = u.float().reshape(b, g, dpg, l)
+    B5, C5 = B.float()[:, :, None], C.float()[:, :, None]
+    for t0 in range(0, l, scan_hillis.CHUNK):
+        sl = slice(t0, min(t0 + scan_hillis.CHUNK, l))
+        m = live[sl]
+        dtc, uc = dt4[..., sl], u4[..., sl]
+        a = torch.where(m, torch.exp(dtc[..., None, :] * A5), 1.0)
+        x = torch.where(m, (dtc * uc)[..., None, :] * B5[..., sl], 0.0)
+        yield dict(sl=sl, live=m, dt=dtc, sig=sig4[..., sl], u=uc, a=a, x=x,
+                   B=B5[..., sl], C=C5[..., sl])
+
+
+def selective_scan_hillis_ref(u: torch.Tensor, delta: torch.Tensor,
+                              A: torch.Tensor, B: torch.Tensor,
+                              C: torch.Tensor,
+                              D: Optional[torch.Tensor] = None,
+                              delta_bias: Optional[torch.Tensor] = None,
+                              delta_softplus: bool = False,
+                              valid_len: Optional[int] = None):
+    """The plain version of K3: the chunked doubling scan, left to right,
+    vectorized over (b, d, n); the TPU kernel's ``_fwd_kernel`` body.
+
+    Operands as K3 takes them (u with all G*dpg channels, no flips).
+    Returns ``(y, states, last)`` in float32: y (b, d, L), the state entering
+    each 128-step chunk (b, d, n_chunks, N) and the state after the last step
+    (b, d, N). Positions >= ``valid_len`` are identity steps.
+    """
+    b, d, l = delta.shape
+    g, n = B.shape[1], A.shape[1]
+    h = u.new_zeros((b, g, d // g, n), dtype=torch.float32)
+    ys, states = [], []
+    for ck in _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus,
+                             valid_len):
+        states.append(h)
+        hc = _fwd_chunk_scan(ck["a"], ck["x"], h)
+        ys.append((hc * ck["C"]).sum(3))
+        h = hc[..., -1]
+    y = torch.cat(ys, dim=-1).reshape(b, d, l)
+    if D is not None:
+        y = y + u.float() * D.float()[None, :, None]
+    states = torch.stack(states, dim=3).reshape(b, d, -1, n)
+    return y, states, h.reshape(b, d, n)
+
+
+def selective_scan_hillis_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
+                                  A: torch.Tensor, B: torch.Tensor,
+                                  C: torch.Tensor, D: Optional[torch.Tensor],
+                                  delta_bias: Optional[torch.Tensor],
+                                  states: torch.Tensor, gy: torch.Tensor,
+                                  delta_softplus: bool = False,
+                                  valid_len: Optional[int] = None):
+    """The plain version of K4: K3's adjoint by reverse doubling, chunks
+    walked last to first; the TPU kernel's ``_bwd_kernel`` body.
+
+    Each chunk's states are recomputed from its entry in ``states``;
+    ``dh_t = C_t gy_t + a_{t+1} dh_{t+1}`` is solved by a suffix doubling
+    with the carry ``a_0 dh_0`` handed to the chunk before. At positions >=
+    ``valid_len`` gy counts as 0 and du and ddelta are 0. Returns ``(du,
+    ddelta, dA, dB, dC, dD, dbias)`` in the dtypes of their primals (dD and
+    dbias None where D and delta_bias are); see
+    ``csrc/selective_scan_hillis_bwd.cu`` for the formulas.
+    """
+    b, d, l = delta.shape
+    g, n = B.shape[1], A.shape[1]
+    dpg = d // g
+    st = states.float().reshape(b, g, dpg, -1, n)
+    gy4 = gy.float().reshape(b, g, dpg, l)
+    D4 = (D.float() if D is not None else A.new_zeros(d)).reshape(g, dpg, 1)
+    A5 = A.float().reshape(1, g, dpg, n, 1)
+    chunks = list(_hillis_chunks(u, delta, A, B, C, delta_bias,
+                                 delta_softplus, valid_len))
+    du, ddt, dB, dC = ([None] * len(chunks) for _ in range(4))
+    dA = torch.zeros((g, dpg, n), dtype=torch.float32, device=A.device)
+    dD = torch.zeros((g, dpg), dtype=torch.float32, device=A.device)
+    carry = torch.zeros_like(st[..., 0, :])
+    for ci in reversed(range(len(chunks))):
+        ck = chunks[ci]
+        h0 = st[..., ci, :]
+        gyc = torch.where(ck["live"], gy4[..., ck["sl"]], 0.0)
+        a = ck["a"]
+        hc = _fwd_chunk_scan(a, ck["x"], h0)
+        hprev = torch.cat([h0[..., None], hc[..., :-1]], dim=-1)
+        dh = _bwd_chunk_scan(a, ck["C"] * gyc[..., None, :], carry)
+        carry = a[..., 0] * dh[..., 0]
+        p2 = dh * hprev * a
+        dhB = (dh * ck["B"]).sum(3)
+        dadt = (p2 * A5).sum(3)
+        zero = torch.zeros_like(dhB)
+        du[ci] = torch.where(ck["live"], ck["dt"] * dhB + D4 * gyc, zero)
+        ddt[ci] = torch.where(ck["live"],
+                              (ck["u"] * dhB + dadt) * ck["sig"], zero)
+        dB[ci] = (dh * (ck["dt"] * ck["u"])[..., None, :]).sum(2)
+        dC[ci] = (hc * gyc[..., None, :]).sum(2)
+        dA = dA + (p2 * ck["dt"][..., None, :]).sum((0, 4))
+        dD = dD + (gyc * ck["u"]).sum((0, 3))
+    du =torch.cat(du, dim=-1).reshape(b, d, l)
+    ddelta = torch.cat(ddt, dim=-1).reshape(b, d, l)
+    dD = dD.reshape(d) if D is not None else None
+    dbias = ddelta.sum((0, 2)) if delta_bias is not None else None
+    return (du.to(u.dtype), ddelta.to(delta.dtype), dA.reshape(d, n),
+            torch.cat(dB, dim=-1).to(B.dtype),
+            torch.cat(dC, dim=-1).to(C.dtype), dD, dbias)
+
+
+class _HillisScan(torch.autograd.Function):
+    """The doubling scan with its adjoint as the backward: the counterpart
+    of the JAX package's ``custom_vjp`` around ``_fwd_kernel`` and
+    ``_bwd_kernel`` (``pallas_scan.py:1585-1648``).
+
+    ``fwd`` and ``bwd`` compute the forward and the adjoint: the caller
+    passes K3's and K4's launchers (``ops/scan_hillis.py``) or their plain
+    versions; nothing here chooses between them. Returns ``(y, last)``, y in
+    float32, the last state not differentiable; the gradients come back in
+    the dtypes of their primals.
+    """
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus,
+                valid_len, fwd, bwd):
+        y, states, last = fwd(u, delta, A, B, C, D, delta_bias,
+                              delta_softplus=delta_softplus,
+                              valid_len=valid_len)
+        ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, states)
+        ctx.kw = dict(delta_softplus=delta_softplus, valid_len=valid_len)
+        ctx.bwd = bwd
+        ctx.mark_non_differentiable(last)
+        return y, last
+
+    @staticmethod
+    def backward(ctx, gy, _):
+        saved = ctx.saved_tensors
+        grads = ctx.bwd(*saved, gy.float().contiguous(), **ctx.kw)
+        grads = tuple(None if gr is None else gr.to(x.dtype)
+                      for gr, x in zip(grads, saved))
+        return (*grads, None, None, None, None)
+
+
+def _hillis_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                 return_last_state, reverse_dirs, u_tile, valid_len, fwd,
+                 bwd):
+    """The JAX package's wrapper around its doubling kernels
+    (``pallas_scan.py:1704-1746``): a tiled u is materialized, flagged
+    groups are flipped along L into a forward-only scan and y is flipped
+    back; with flips, ``valid_len`` becomes delta = -1e4 at the pad
+    positions before the flip (softplus gives dt = 0 there exactly) and is
+    then dropped, else the scan masks it. y is float32 whatever the caller's
+    ``out_dtype``. ``fwd``/``bwd`` as for :class:`_HillisScan`."""
+    g = B.shape[1]
+    if u_tile > 1:
+        u = torch.cat([u] * u_tile, dim=1)
+    flip = reverse_dirs is not None and any(reverse_dirs)
+    if flip:
+        if valid_len is not None and valid_len < delta.shape[-1]:
+            pos = torch.arange(delta.shape[-1], device=delta.device)
+            delta = torch.where(pos < valid_len, delta,
+                                torch.full_like(delta, -1e4))
+        valid_len = None
+        u, delta, B, C = (_flip_groups(x, g, reverse_dirs)
+                          for x in (u, delta, B, C))
+    y, last = _HillisScan.apply(u, delta, A, B, C, D, delta_bias,
+                                delta_softplus, valid_len, fwd, bwd)
+    if flip:
+        y = _flip_groups(y, g, reverse_dirs)
+    return (y, last) if return_last_state else y
+
+
 def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    D: Optional[torch.Tensor] = None,
@@ -285,8 +535,14 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                    valid_len: Optional[int] = None):
     """Selective scan with the JAX package's call-site contract.
 
-    impl: "auto" launches the CUDA kernel on a CUDA tensor and runs the plain
-    version on a CPU tensor; "ref" runs the plain version on any device.
+    impl: "auto" launches the CUDA kernels on a CUDA tensor and runs the
+    plain sequential version on a CPU tensor; "ref" runs the plain version
+    on any device. On a CUDA tensor the environment variable
+    ``MEDMAMBA_SCAN_KERNEL``, read at each call, selects the kernels as it
+    does in the JAX package: ``ssd`` (the default) runs K1 and K2 as its
+    backward; ``hillis`` runs the doubling scan K3 and K4 as its backward,
+    with the JAX wrapper's semantics (reverse groups flipped around a
+    forward-only scan, y always float32, see :func:`_hillis_scan`).
 
     tau: accepted and ignored. It was the TPU kernel's segment length; both
     versions here compute the exact recurrence at any magnitude.
@@ -298,7 +554,9 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     u_tile: u carries ``G // u_tile`` groups of channels; scan group k reads u
     group ``k % (G // u_tile)``.
 
-    out_dtype: y's dtype (float32 by default); the last state is float32.
+    out_dtype: y's dtype (float32 by default; under ``hillis`` y is float32
+    whatever it asks, as the TPU kernel stores it); the last state is
+    float32.
 
     valid_len: positions >= valid_len are padding: dt = 0 there (decay 1,
     inject 0), so the state passes through them unchanged in either
@@ -308,6 +566,11 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         raise ValueError("valid_len requires delta_softplus semantics")
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown selective-scan impl {impl!r}")
+    if impl == "auto" and u.is_cuda and _kernel_impl() == "hillis":
+        return _hillis_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                            return_last_state, reverse_dirs, u_tile,
+                            valid_len, scan_hillis.selective_scan_hillis_fwd,
+                            scan_hillis.selective_scan_hillis_bwd)
     if impl == "auto" and u.is_cuda:
         kw = dict(delta_softplus=delta_softplus, reverse_dirs=reverse_dirs,
                   u_tile=u_tile, out_dtype=out_dtype, valid_len=valid_len)

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain versions, on the card.
 
-K1 (selective-scan forward, with its tile-entry states), K2 (its backward)
-and K5 (flip + rotation). Marked ``cuda``: each test skips where torch sees
-no GPU. On a machine with one: ``python -m pytest --noconftest
+K1 (selective-scan forward, with its tile-entry states), K2 (its backward),
+K3 and K4 (the doubling scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its
+backward) and K5 (flip + rotation). Marked ``cuda``: each test skips where
+torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
 differ only in the order of float32 operations and fused multiply-adds;
 K2's gradients relative to each gradient's largest entry, since its
@@ -15,10 +16,10 @@ import pytest
 import torch
 
 from medmamba_tpu_torch.models import vssm as tv
-from medmamba_tpu_torch.ops import rotate, scan_cuda
-from medmamba_tpu_torch.ops.selective_scan import (selective_scan,
-                                                   selective_scan_bwd_ref,
-                                                   selective_scan_states_ref)
+from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
+from medmamba_tpu_torch.ops.selective_scan import (
+    selective_scan, selective_scan_bwd_ref, selective_scan_hillis_bwd_ref,
+    selective_scan_hillis_ref, selective_scan_states_ref)
 from medmamba_tpu_torch.train.trainer import cross_entropy
 from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -213,3 +214,89 @@ def test_train_step_through_the_kernels_matches_the_plain_scan(cuda):
             # both sides hold rounding noise, bounded against the model's
             # largest gradient
             assert (p.grad - want[name]).abs().max() <= 1e-4 * top, name
+
+
+# K3 and K4, the doubling scan of MEDMAMBA_SCAN_KERNEL=hillis: L 150 ends in a
+# short chunk, L 49 is a single short chunk, L 256 with valid_len 200 masks
+# the last chunk
+HILLIS_CASES = {
+    "fp32": dict(),
+    "bf16": dict(dtype=torch.bfloat16),
+    "single_short_chunk": dict(l=49),
+    "bf16_valid_len": dict(dtype=torch.bfloat16, l=256, valid_len=200),
+    "odd_channels_no_skip": dict(dpg=13, skip=False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HILLIS_CASES))
+def test_hillis_kernels_match_plain_versions(cuda, case):
+    kw = dict(HILLIS_CASES[case])
+    skip = kw.pop("skip", True)
+    valid_len = kw.pop("valid_len", None)
+    x = _inputs(cuda, **kw)
+    if not skip:
+        x["D"] = x["delta_bias"] = None
+    args = [x[k] for k in NAMES]
+    got = scan_hillis.selective_scan_hillis_fwd(
+        *args, delta_softplus=True, valid_len=valid_len)
+    want = selective_scan_hillis_ref(*args, delta_softplus=True,
+                                     valid_len=valid_len)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    gy = torch.randn(got[0].shape, generator=gen, device=cuda)
+    grads = scan_hillis.selective_scan_hillis_bwd(
+        *args, want[1], gy, delta_softplus=True, valid_len=valid_len)
+    want = selective_scan_hillis_bwd_ref(*args, want[1], gy,
+                                         delta_softplus=True,
+                                         valid_len=valid_len)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, grads, want):
+        if w is None:
+            assert g is None
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_hillis_selector_runs_k3_then_k4(cuda, monkeypatch):
+    """Under MEDMAMBA_SCAN_KERNEL=hillis the dispatcher reaches K3 and K4
+    and never K1/K2; y is float32 whatever out_dtype asks; the gradients
+    match the plain scan's."""
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", "hillis")
+    x = _inputs(cuda)
+    xk = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+    xr = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+    kw = dict(delta_softplus=True, reverse_dirs=(False, True))
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+    scan_hillis.HILLIS_LAUNCHES = scan_hillis.HILLIS_BWD_LAUNCHES = 0
+    y = selective_scan(**xk, out_dtype=torch.bfloat16, **kw)
+    assert y.dtype == torch.float32
+    y.backward(torch.ones_like(y))
+    assert (scan_hillis.HILLIS_LAUNCHES, scan_hillis.HILLIS_BWD_LAUNCHES,
+            scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES) == (1, 1, 0, 0)
+    yr = selective_scan(**xr, impl="ref", **kw)
+    yr.backward(torch.ones_like(yr))
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    for k in NAMES:
+        _rel_close(xk[k].grad, xr[k].grad, 1e-4)
+
+
+def test_hillis_launchers_raise_on_bad_operands(cuda):
+    x = _inputs(cuda)
+    args = [x[k] for k in NAMES]
+    y, states, _ = scan_hillis.selective_scan_hillis_fwd(
+        *args, delta_softplus=True)
+    with pytest.raises(ValueError, match="gy"):
+        scan_hillis.selective_scan_hillis_bwd(
+            *args, states, y.to(torch.bfloat16), delta_softplus=True)
+    with pytest.raises(ValueError, match="states"):
+        scan_hillis.selective_scan_hillis_bwd(
+            *args, states[:, :, :1].contiguous(), y, delta_softplus=True)
+    bad = dict(x, A=x["A"][:, :8].contiguous())
+    with pytest.raises(ValueError, match="A"):
+        scan_hillis.selective_scan_hillis_fwd(
+            *(bad[k] for k in NAMES), delta_softplus=True)
+    with pytest.raises(ValueError, match="valid_len"):
+        scan_hillis.selective_scan_hillis_fwd(*args, valid_len=151)

@@ -23,6 +23,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, medmamba_tpu_torch, medmamba_tpu_torch.cli.evaluate\n"
             "import medmamba_tpu_torch.cli.train\n"
             "import medmamba_tpu_torch.train.trainer\n"
+            "import medmamba_tpu_torch.ops.scan_hillis\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
             "print(repr(bad))\n")
