@@ -62,9 +62,24 @@ Phases, in order; any failure exits non-zero:
      backward through K4 against the same backward through K4's plain
      version, per parameter;
  16. timing under hillis: the eval forward and the bf16 train step beside
-     the ssd numbers, with their device time by kernel family.
+     the ssd numbers, with their device time by kernel family;
+ 17. P1 (``tools/probe_vpu.py``, the elementwise issue-rate probe) against
+     its plain version in every mode, float32 and bfloat16, at the TPU
+     probe's size; its time per call, el-op rate and bounds, failing any
+     mode that runs above its issue bound;
+ 18. P2 (``tools/probe_mosaic.py``, the 14 relayout probes) against their
+     plain versions, exactly; kernel, library and plain times;
+ 19. Grad-CAM: ``cli.test`` on a tree of 224^2 PNGs with a random
+     medmamba_t ``.pth``, 4 images at the default target (20 + 20 K1 and no
+     K2 per image) and at two targets, the first upstream of 10 scans (20 +
+     20 K1 and 10 K2 per image); each CAM against the same weights on the
+     plain scan; one image under hillis (40 K3, 10 K4) against the ssd CAM;
+ 20. the demo server (``cli.demo``) in a thread: three POSTs (RGB with
+     target -1 and 3, RGBA) and ``GET /random?mode=gt``, 40 K1 and no K2
+     per request, the page's probabilities against the same model's
+     softmax on the same pixels; the latency per request.
 The line before the last lists every kernel of the port (K1, K2, K5, K3,
-K4) with its launches, times and bound; the last line is the JSON
+K4, P1, P2) with its launches, times and bound; the last line is the JSON
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -460,7 +475,8 @@ def write_train_split(root: str) -> None:
 
 def expected_counts(**launches) -> dict:
     """Launch counts with every kernel not named at 0."""
-    return {k: launches.get(k, 0) for k in ("K1", "K2", "K3", "K4", "K5")}
+    return {k: launches.get(k, 0)
+            for k in ("K1", "K2", "K3", "K4", "K5", "P1", "P2")}
 
 
 def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
@@ -952,19 +968,350 @@ def phase_hillis_gradients():
                              loss_p)[-1][0]
 
 
+def phase_probe_vpu():
+    """P1 against its plain version for every mode, dtype and k at the TPU
+    probe's size, in float32 also the share of the chain's effect it
+    carries (``probe_vpu.run`` raises beyond their limits), then its time
+    per call, rate and bounds; fails a mode whose rate exceeds 1.05x its
+    issue bound (work removed; the only check that sees skipped steps in
+    exp, whose output forgets its input after two steps)."""
+    from medmamba_tpu_torch.tools import probe_vpu
+
+    reset_counts()
+    rows = probe_vpu.run(probe_vpu.MODES)
+    counts = read_counts()
+    for r in rows:
+        log(f"  {r['mode']:5s} {r['dtype']:8s} k={r['k']:3d}: "
+            f"{r['ms']:.4f} ms/call, {r['tera_el_ops_s']:.2f} T el-ops/s; "
+            f"issue bound {r['issue_tera_el_ops_s']:.2f}, bytes bound "
+            f"{r['bytes_tera_el_ops_s']:.2f} T el-ops/s (bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}); plain "
+            f"{r['plain_ms']:.3f} ms; {r['max_rel_err']:.2e} of the largest "
+            f"entry from the plain version"
+            + ("" if r["work_share"] is None else
+               f", {r['work_share']:.6f} of the chain's effect"))
+        if r["tera_el_ops_s"] > 1.05 * r["issue_tera_el_ops_s"]:
+            raise SystemExit(f"P1 {r['mode']} {r['dtype']} k={r['k']} runs "
+                             "above its issue bound: work was removed")
+    if counts != expected_counts(P1=counts["P1"]) or not counts["P1"]:
+        raise SystemExit(f"phase 17 launched {counts}")
+    return rows, counts["P1"]
+
+
+def phase_probe_mosaic():
+    """P2's 14 probes against their plain versions, exactly; kernel,
+    library and plain times per probe beside the bytes bound."""
+    from medmamba_tpu_torch.tools import probe_mosaic
+
+    reset_counts()
+    rows = probe_mosaic.run()
+    counts = read_counts()
+    for r in rows:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, library "
+            f"{r['library_ms']:.4f} ms (max|err| "
+            f"{r['library_max_abs_err']:.1e}), plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.6f} ms (bytes)")
+    if counts != expected_counts(P2=counts["P2"]) or not counts["P2"]:
+        raise SystemExit(f"phase 18 launched {counts}")
+    return rows, counts["P2"]
+
+
+def write_image_tree(root: str) -> str:
+    """A class-folder tree of 3 classes x 3 random 224^2 RGB PNGs."""
+    import numpy as np
+
+    from medmamba_tpu_torch.utils import png
+
+    rng = np.random.default_rng(SEED + 9)
+    tree = os.path.join(root, "images")
+    for c in range(3):
+        os.makedirs(os.path.join(tree, f"class_{c}"))
+        for i in range(3):
+            with open(os.path.join(tree, f"class_{c}", f"{i}.png"),
+                      "wb") as f:
+                f.write(png.encode(rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                                dtype=np.uint8)))
+    return tree
+
+
+def load_image(path: str):
+    """A PNG of the tree as the CLIs take it: preprocessed, on the card."""
+    import torch
+
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.utils import png
+
+    with open(path, "rb") as f:
+        img = png.load_rgb(f.read(), IMAGE)
+    return preprocess(torch.from_numpy(img[None]).cuda(), size=IMAGE)
+
+
+def cam_sites(model, paths: list) -> list:
+    """The CAM's targets and every block's output: where check_cam
+    substitutes the program's activations."""
+    from medmamba_tpu_torch.eval.gradcam import block_paths
+
+    return [*paths, *block_paths(model)]
+
+
+def check_cam(label: str, got, acts: list, other, x, target_class,
+              paths: list):
+    """A CAM ``got`` of the program against the CAM of the ``other`` model
+    on the same image and class, computed at the program's activations
+    ``acts`` (at ``cam_sites``, from the program's forward) substituted
+    into the other's forward, so every ReLU masks the same elements in
+    both. A CAM is discontinuous where an activation before a ReLU crosses
+    zero, and rounding-level differences of the forward cross it at some
+    images: about 1 in 8 at ``layers_2.blocks_0.conv1x1`` of medmamba_t
+    without the substitution (my chip runs). Within TOL_FP32; and the other
+    forward's own activations at ``paths`` within TOL_FP32 of their scale
+    of the program's. Returns the CAM's error; exits otherwise."""
+    import numpy as np
+
+    from medmamba_tpu_torch.eval.gradcam import grad_cam, target_activations
+
+    want = grad_cam(other, x, target_class=target_class, target_paths=paths,
+                    substitute=dict(zip(cam_sites(other, paths), acts)))[0]
+    err = float(np.abs(got - want).max())
+    act_err = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(acts, target_activations(other, x, paths)))
+    note = (f"max|err| {err:.2e}; target activations {act_err:.2e} of "
+            "their scale")
+    if not (err <= TOL_FP32 and act_err <= TOL_FP32):
+        raise SystemExit(f"{label}: the CAMs disagree ({note})")
+    log(f"    {label}: {note}")
+    return err
+
+
+CAM_IMAGES = 4
+UPSTREAM_TARGETS = ["layers_2.blocks_0.conv1x1", "layers_3.blocks_1.conv1x1"]
+DEFAULT_TARGET = ["layers_3.blocks_1.conv1x1"]
+# scans downstream of layers_2.blocks_0's conv branch: the SS2Ds of
+# layers_2.blocks_1-3 and layers_3.blocks_0-1, two calls each
+UPSTREAM_BWD = 10
+
+
+def phase_gradcam(root: str):
+    """cli.test at the default target and at two targets, the first
+    upstream of 10 scans: exact launch counts per image, each CAM against
+    the same weights on the plain scan (check_cam) and non-degenerate; one
+    image under hillis against the ssd CAM."""
+    import torch
+
+    from medmamba_tpu_torch.cli import test as test_cli
+    from medmamba_tpu_torch.eval.gradcam import target_activations
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.utils import png
+
+    tree = write_image_tree(root)
+    model = create_model("T", NUM_CLASSES, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    pth = os.path.join(root, "medmamba_t.pth")
+    write_model_pth(model, pth)
+    model.eval()
+    ref = create_model("T", NUM_CLASSES, device="cuda", scan_impl="ref")
+    ref.load_state_dict(model.state_dict())
+    ref.eval()
+
+    def run_cli(tag, n_images, targets, fwd, bwd, n_bwd):
+        argv = ["--checkpoint_path", pth, "--test_dir", tree,
+                "--num_classes", str(NUM_CLASSES), "--num_images",
+                str(n_images), "--image_size", str(IMAGE), "--device", "cuda",
+                "--output_dir", os.path.join(root, tag)]
+        if targets:
+            argv += ["--target_layers", *targets]
+        reset_counts()
+        t0 = time.perf_counter()
+        out = test_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = expected_counts(**{fwd: 2 * LAUNCHES_PER_FORWARD * n_images,
+                                  bwd: n_bwd * n_images})
+        per_image = [r["seconds"] for r in out]
+        log(f"  cli.test {tag}: {n_images} images in {wall:.2f} s with the "
+            f"model's load; per image {', '.join(f'{t:.4f}' for t in per_image)}"
+            f" s, launches {counts}")
+        if counts != want or len(out) != n_images:
+            raise SystemExit(f"cli.test {tag} launched {counts} for "
+                             f"{len(out)} images, expected {want}")
+        for r in out:
+            with open(r["out"], "rb") as f:
+                if png.decode(f.read()).shape != (IMAGE, 2 * IMAGE, 3):
+                    raise SystemExit(f"{r['out']} is not the side-by-side "
+                                     "pair")
+        return out, wall
+
+    results = {}
+    for tag, targets, n_bwd in (("default", None, 0),
+                                ("upstream", UPSTREAM_TARGETS, UPSTREAM_BWD)):
+        out, wall = run_cli(tag, CAM_IMAGES, targets, "K1", "K2", n_bwd)
+        paths = targets or DEFAULT_TARGET
+        worst = 0.0
+        for r in out:
+            x = load_image(r["path"])
+            spread = float(r["cam"].max() - r["cam"].min())
+            label = (f"{os.path.relpath(r['path'], tree)} (class "
+                     f"{r['pred']}, conf {r['conf']:.4f}, CAM max - min "
+                     f"{spread:.4f}) against the plain scan")
+            worst = max(worst, check_cam(
+                label, r["cam"], target_activations(
+                    model, x, cam_sites(model, paths)),
+                ref, x, [r["pred"]], paths))
+            if spread <= 0.5:
+                raise SystemExit(f"cli.test {tag}: the CAM of {r['path']} "
+                                 "is degenerate")
+        results[tag] = dict(out=out, wall=wall, cam_err=worst,
+                            s_per_image=statistics.median(
+                                r["seconds"] for r in out[1:]))
+
+    with scan_kernel("hillis"):
+        out, _ = run_cli("hillis", 1, UPSTREAM_TARGETS, "K3", "K4",
+                         UPSTREAM_BWD)
+        x = load_image(out[0]["path"])
+        acts = target_activations(model, x,
+                                  cam_sites(model, UPSTREAM_TARGETS))
+    if out[0]["path"] not in {r["path"] for r in results["upstream"]["out"]}:
+        raise SystemExit("the hillis run picked another image")
+    results["hillis_err"] = check_cam(
+        "hillis CAM against the ssd CAM", out[0]["cam"], acts, model, x,
+        [out[0]["pred"]], UPSTREAM_TARGETS)
+    return tree, pth, results
+
+
+def phase_demo(tree: str, pth: str):
+    """cli.demo's server in a thread: two POSTs of an RGB PNG (target -1
+    and 3), a POST of an RGBA PNG and GET /random?mode=gt; per request 20
+    K1 for the prediction and 20 for the CAM, no K2; the page's two PNGs,
+    and its probabilities against the same model's softmax on the same
+    pixels."""
+    import base64
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli import demo
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train.checkpoint import restore_params
+    from medmamba_tpu_torch.utils import png
+
+    rng = np.random.default_rng(SEED + 10)
+    rgb = rng.integers(0, 256, (IMAGE, IMAGE, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, (IMAGE, IMAGE, 4), dtype=np.uint8)
+    check = create_model("T", NUM_CLASSES, device="cuda")
+    check.load_state_dict(restore_params(pth)[0], strict=True)
+    check.eval()
+
+    def multipart(data: bytes, target: int):
+        b = "medmambaBoundary7"
+        body = (f"--{b}\r\nContent-Disposition: form-data; name=\"image\"; "
+                f"filename=\"x.png\"\r\nContent-Type: image/png\r\n\r\n"
+                ).encode() + data + (
+            f"\r\n--{b}\r\nContent-Disposition: form-data; name=\"target\""
+            f"\r\n\r\n{target}\r\n--{b}--\r\n").encode()
+        return body, {"Content-Type": f"multipart/form-data; boundary={b}"}
+
+    srv = demo.make_server(demo.parse_args(
+        ["--checkpoint_path", pth, "--port", "0", "--image_size",
+         str(IMAGE), "--device", "cuda", "--test_dir", tree]))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    requests = [("POST rgb target -1", rgb, -1), ("POST rgb target 3", rgb, 3),
+                ("POST rgba target -1", rgba, -1),
+                ("GET /random?mode=gt", None, None)]
+    latencies, worst = [], 0.0
+    try:
+        for label, img, target in requests:
+            if img is None:
+                req = urllib.request.Request(url + "/random?mode=gt")
+            else:
+                body, headers = multipart(png.encode(img), target)
+                req = urllib.request.Request(url, data=body, headers=headers)
+            reset_counts()
+            t0 = time.perf_counter()
+            page = urllib.request.urlopen(req, timeout=300).read().decode()
+            torch.cuda.synchronize()
+            latencies.append(time.perf_counter() - t0)
+            counts = read_counts()
+            if counts != expected_counts(K1=2 * LAUNCHES_PER_FORWARD):
+                raise SystemExit(f"demo {label} launched {counts}")
+            if "Prediction:" not in page:
+                raise SystemExit(f"demo {label}: no prediction in the page: "
+                                 f"{page[-400:]}")
+            pngs = [png.decode(base64.b64decode(s)) for s in re.findall(
+                r"data:image/png;base64,([A-Za-z0-9+/=]+)", page)]
+            if len(pngs) != 2 or any(p.shape != (IMAGE, IMAGE, 3)
+                                     for p in pngs):
+                raise SystemExit(f"demo {label}: page images "
+                                 f"{[p.shape for p in pngs]}")
+            if img is None:
+                path = re.search(r"random pick: <code>([^<]+)</code>",
+                                 page).group(1)
+                with open(path, "rb") as f:
+                    pixels = png.decode(f.read())
+            else:
+                pixels = img[..., :3]
+            if not np.array_equal(pngs[0], pixels):
+                raise SystemExit(f"demo {label}: the page's input image is "
+                                 "not the pixels sent")
+            probs = np.array(json.loads(re.search(r"data-probs='([^']+)'",
+                                                  page).group(1)))
+            with torch.no_grad():
+                want = torch.softmax(check(preprocess(torch.from_numpy(
+                    pixels[None]).cuda(), size=IMAGE)), -1)[0].cpu().numpy()
+            err = float(np.abs(probs - want).max())
+            worst = max(worst, err)
+            log(f"  {label}: {latencies[-1] * 1e3:.1f} ms, launches {counts}, "
+                f"probabilities sum {probs.sum():.7f}, against the model's "
+                f"softmax max|err| {err:.2e}")
+            if abs(probs.sum() - 1) > 1e-4 or err > 1e-5:
+                raise SystemExit(f"demo {label}: probabilities disagree")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    median_ms = statistics.median(latencies[1:]) * 1e3
+    log(f"  median latency per request after the first: {median_ms:.1f} ms "
+        f"(first {latencies[0] * 1e3:.1f} ms)")
+
+    return dict(latency_ms=[t * 1e3 for t in latencies],
+                median_ms=median_ms, prob_err=worst)
+
+
+def sum_rows(rows: list) -> dict:
+    """Probe rows summed: one call of each case or probe."""
+    out = {k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "bound_ms")}
+    by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    out["bound_by"] = ("operations" if by_ops > out["bound_ms"] / 2
+                       else "bytes")
+    out["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    if all("library_ms" in r for r in rows):
+        out["library_ms"] = sum(r["library_ms"] for r in rows)
+    return out
+
+
 def reset_counts() -> None:
     from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
+    from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
 
     scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = rotate.LAUNCHES = 0
     scan_hillis.HILLIS_LAUNCHES = scan_hillis.HILLIS_BWD_LAUNCHES = 0
+    probe_vpu.LAUNCHES = probe_mosaic.LAUNCHES = 0
 
 
 def read_counts() -> dict:
     from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
+    from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
 
     return {"K1": scan_cuda.LAUNCHES, "K2": scan_cuda.BWD_LAUNCHES,
             "K3": scan_hillis.HILLIS_LAUNCHES,
-            "K4": scan_hillis.HILLIS_BWD_LAUNCHES, "K5": rotate.LAUNCHES}
+            "K4": scan_hillis.HILLIS_BWD_LAUNCHES, "K5": rotate.LAUNCHES,
+            "P1": probe_vpu.LAUNCHES, "P2": probe_mosaic.LAUNCHES}
 
 
 def write_split(root: str) -> None:
@@ -1145,6 +1492,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from medmamba_tpu_torch.ops import (cuda_build, rotate, scan_cuda,
                                         scan_hillis)
+    from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
 
     t_start = time.perf_counter()
     log("phase 1: device")
@@ -1158,7 +1506,8 @@ def main() -> int:
     log("phase 2: build")
     t0 = time.perf_counter()
     sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE, rotate.SOURCE,
-               scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE)
+               scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE,
+               probe_vpu.SOURCE, probe_mosaic.SOURCE)
     libs = cuda_build.build(*sources)
     log(f"  built {', '.join(os.path.relpath(p, REPO) for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -1270,6 +1619,23 @@ def main() -> int:
     log("hillis_train_profile " + json.dumps(h_train_prof))
     log("k3_stages " + json.dumps(k3_stages))
     log("k4_stages " + json.dumps(k4_stages))
+
+    log("phase 17: P1 (issue-rate probe) against its plain version, timed")
+    p1_rows, p1_launches = phase_probe_vpu()
+    p1 = sum_rows(p1_rows)
+    log("p1 " + json.dumps(p1_rows))
+
+    log("phase 18: P2 (relayout probes) against their plain versions")
+    p2_rows, p2_launches = phase_probe_mosaic()
+    p2 = sum_rows(p2_rows)
+    log("p2 " + json.dumps(p2_rows))
+
+    log("phase 19: Grad-CAM through cli.test (medmamba_t 224^2)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        tree, pth, cams = phase_gradcam(root)
+
+        log("phase 20: the demo server (cli.demo, medmamba_t 224^2)")
+        demo_out = phase_demo(tree, pth)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -1331,7 +1697,29 @@ def main() -> int:
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": None, "doubling_ops_ms": k4["doubling_ms"],
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
-        "model_grad_rel_err": hillis_grad_err}],
+        "model_grad_rel_err": hillis_grad_err}, {
+        "name": "probe_vpu", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/probe_vpu.cu",
+        "replaces": "tools/probe_vpu.py:21",
+        "launches": p1_launches,
+        "max_abs_err": p1["max_abs_err"],
+        "ms": p1["ms"], "plain_ms": p1["plain_ms"],
+        "bound_ms": p1["bound_ms"], "bound_by": p1["bound_by"],
+        "library_ms": None, "cases": len(p1_rows)}, {
+        "name": "probe_mosaic", "route": "cuda",
+        "source": "medmamba_tpu_torch/csrc/probe_mosaic.cu",
+        "replaces": "tools/probe_mosaic.py:20",
+        "launches": p2_launches,
+        "max_abs_err": p2["max_abs_err"],
+        "ms": p2["ms"], "plain_ms": p2["plain_ms"],
+        "bound_ms": p2["bound_ms"], "bound_by": p2["bound_by"],
+        "library_ms": p2["library_ms"], "cases": len(p2_rows)}],
+        "gradcam": {"s_per_image_after_first": {
+            k: cams[k]["s_per_image"] for k in ("default", "upstream")},
+            "cam_err_vs_plain_scan": max(cams["default"]["cam_err"],
+                                         cams["upstream"]["cam_err"]),
+            "hillis_cam_err": cams["hillis_err"]},
+        "demo": demo_out,
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
         "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()}}))
     log(json.dumps({"ok": True, "device": {

@@ -49,14 +49,16 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
-def resize(x: torch.Tensor, size: int = 224) -> torch.Tensor:
-    """Bilinear resize of a float NHWC batch to (size, size)."""
+def resize(x: torch.Tensor, size=224) -> torch.Tensor:
+    """Bilinear resize of a float NHWC batch to (size, size), or to
+    (height, width) when ``size`` is a pair."""
     _, h, w, _ = x.shape
-    if h != size:
-        wh = torch.from_numpy(resize_weights(h, size)).to(x.device)
+    out_h, out_w = (size, size) if isinstance(size, int) else size
+    if h != out_h:
+        wh = torch.from_numpy(resize_weights(h, out_h)).to(x.device)
         x = torch.einsum("bhwc,hH->bHwc", x, wh)
-    if w != size:
-        ww = torch.from_numpy(resize_weights(w, size)).to(x.device)
+    if w != out_w:
+        ww = torch.from_numpy(resize_weights(w, out_w)).to(x.device)
         x = torch.einsum("bhwc,wW->bhWc", x, ww)
     return x
 

@@ -23,12 +23,19 @@ in the block dtype; ``out_norm`` runs in float32 and the logits are float32.
 
 Training randomness comes from a ``torch.Generator`` that the caller passes
 to ``forward``, never from the global generator.
+
+Grad-CAM reads activations through taps (:meth:`VSSM.tap_site`), not forward
+hooks: the convolutions run as ``F.conv2d`` on the modules' weights, so a
+hook on a ``Conv2d`` would never fire. A tap is a callback in a module's
+``taps`` dict; the dicts are empty unless a CAM is being computed, and add
+no parameters or buffers.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional, Sequence
+import re
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -96,6 +103,25 @@ def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     """Statistics and affine in float32, the result in ``dtype``."""
     return F.layer_norm(x.float(), layer.normalized_shape, layer.weight,
                         layer.bias, layer.eps).to(dtype)
+
+
+# The conv branch's JAX module names (medmamba_tpu/models/vssm.py:506-513) by
+# index in ``conv33conv33conv11``; the ReLUs there are functions, not modules
+JAX_CONV_NAMES = {"conv_bn0": 0, "conv3x3_0": 1, "conv_bn1": 2,
+                  "conv3x3_1": 4, "conv_bn2": 5, "conv1x1": 7}
+CONV_BRANCH = "conv33conv33conv11"
+
+
+def _tap(taps: dict, point: str, x: torch.Tensor,
+         nchw: bool = False) -> torch.Tensor:
+    """``x`` through the callback at ``point``, if there is one. An NCHW
+    activation is shown to the callback as NHWC, the JAX model's layout."""
+    fn = taps.get(point)
+    if fn is None:
+        return x
+    if nchw:
+        return fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    return fn(x)
 
 
 class DropPath(nn.Module):
@@ -379,27 +405,38 @@ class SSConvSSM(nn.Module):
         self.conv33conv33conv11 = nn.Sequential(
             MaskedBatchNorm(half), convs[0], MaskedBatchNorm(half), nn.ReLU(),
             convs[1], MaskedBatchNorm(half), nn.ReLU(), convs[2], nn.ReLU())
+        # Grad-CAM taps: "" (the block's output), "ln_1", "self_attention",
+        # "conv33conv33conv11.<index>" (that layer's output, NHWC)
+        self.taps = {}
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask``: rows that count in the BatchNorm statistics; ``keep``:
         the DropPath keep mask (``self.drop_path.sample``), None for none."""
+        taps = self.taps
         left, right = x.chunk(2, dim=-1)
-        r = self.self_attention(_layer_norm(self.ln_1, right, self.dtype))
+        r = _layer_norm(self.ln_1, right, self.dtype)
+        if taps:
+            r = _tap(taps, "ln_1", r)
+        r = self.self_attention(r)
+        if taps:
+            r = _tap(taps, "self_attention", r)
         r = self.drop_path(r, keep)
         c = left.permute(0, 3, 1, 2)
-        for layer in self.conv33conv33conv11:
+        for k, layer in enumerate(self.conv33conv33conv11):
             if isinstance(layer, MaskedBatchNorm):
                 c = layer(c, mask)
             elif isinstance(layer, nn.Conv2d):
                 c = _conv(layer, c, self.dtype)
             else:
                 c = layer(c)
+            if taps:
+                c = _tap(taps, f"{CONV_BRANCH}.{k}", c, nchw=True)
         c = c.permute(0, 2, 3, 1)
         # concat + channel_shuffle(groups=2) == out[..., 2j] = c[..., j],
         # out[..., 2j + 1] = r[..., j]
-        out = torch.stack([c, r], dim=-1).reshape(x.shape)
-        return out + x
+        out = torch.stack([c, r], dim=-1).reshape(x.shape) + x
+        return _tap(taps, "", out) if taps else out
 
 
 class VSSLayer(nn.Module):
@@ -419,6 +456,7 @@ class VSSLayer(nn.Module):
             for i in range(depth))
         self.downsample = (PatchMerging2D(dim, dtype, generator=generator)
                            if downsample else None)
+        self.taps = {}        # Grad-CAM tap "": the stage's output
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -436,7 +474,7 @@ class VSSLayer(nn.Module):
                 x = blk(x, mask, keep)
         if self.downsample is not None:
             x = self.downsample(x)
-        return x
+        return _tap(self.taps, "", x) if self.taps else x
 
 
 class VSSM(nn.Module):
@@ -499,3 +537,36 @@ class VSSM(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.forward_backbone(x, mask, generator)
         return _linear(self.head, x.mean(dim=(1, 2)), self.dtype).float()
+
+    def tap_site(self, path: Union[str, Sequence[str]]
+                 ) -> Tuple[nn.Module, str]:
+        """(module, tap point) of an activation named by its JAX module path
+        (``layers_i``, ``layers_i.blocks_j``, ``layers_i.blocks_j.<name>``
+        with <name> one of ``ln_1``, ``self_attention``, ``conv_bn0``,
+        ``conv3x3_0``, ``conv_bn1``, ``conv3x3_1``, ``conv_bn2``,
+        ``conv1x1``; a string or a sequence of segments) or by the port's
+        module names (``layers.i``, ``layers.i.blocks.j``,
+        ``layers.i.blocks.j.conv33conv33conv11.k`` ...). As in the JAX
+        model, a convolution's or BatchNorm's activation is taken before
+        the ReLU that follows it. Raises ValueError naming an unknown
+        path."""
+        name = path if isinstance(path, str) else ".".join(path)
+        m = re.fullmatch(r"layers[._](\d+)(?:\.blocks[._](\d+)(?:\.(.+))?)?",
+                         name)
+        if m and int(m.group(1)) < len(self.layers):
+            layer = self.layers[int(m.group(1))]
+            if m.group(2) is None:
+                return layer, ""
+            if int(m.group(2)) < len(layer.blocks):
+                block = layer.blocks[int(m.group(2))]
+                rest = m.group(3)
+                if rest is None:
+                    return block, ""
+                if rest in ("ln_1", "self_attention"):
+                    return block, rest
+                if rest in JAX_CONV_NAMES:
+                    return block, f"{CONV_BRANCH}.{JAX_CONV_NAMES[rest]}"
+                k = re.fullmatch(rf"{CONV_BRANCH}\.(\d+)", rest)
+                if k and int(k.group(1)) < len(block.conv33conv33conv11):
+                    return block, rest
+        raise ValueError(f"target path {name!r} not found in model")

@@ -2,16 +2,18 @@
 
 K1 (selective-scan forward, with its tile-entry states), K2 (its backward),
 K3 and K4 (the doubling scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its
-backward) and K5 (flip + rotation). Marked ``cuda``: each test skips where
+backward), K5 (flip + rotation), the probes P1 and P2, and the launch
+counts of a Grad-CAM. Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
 differ only in the order of float32 operations and fused multiply-adds;
 K2's gradients relative to each gradient's largest entry, since its
 atomics sum in a varying order); bfloat16 outputs 1e-2 (their last
-rounding, 2^-8 relative); K5 exact.
+rounding, 2^-8 relative); K5 and P2 exact; P1 as ``probe_vpu.TOL``.
 """
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +22,7 @@ from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
 from medmamba_tpu_torch.ops.selective_scan import (
     selective_scan, selective_scan_bwd_ref, selective_scan_hillis_bwd_ref,
     selective_scan_hillis_ref, selective_scan_states_ref)
+from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
 from medmamba_tpu_torch.train.trainer import cross_entropy
 from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -300,3 +303,80 @@ def test_hillis_launchers_raise_on_bad_operands(cuda):
             *(bad[k] for k in NAMES), delta_softplus=True)
     with pytest.raises(ValueError, match="valid_len"):
         scan_hillis.selective_scan_hillis_fwd(*args, valid_len=151)
+
+
+@pytest.mark.parametrize("mode", probe_vpu.MODES)
+def test_probe_vpu_kernel_matches_plain_version(cuda, mode):
+    """P1 at (256, 512): float32 within 1e-4 of the largest entry and
+    carrying the chain's effect within probe_vpu.WORK_TOL, bfloat16 within
+    2e-2 (probe_vpu.TOL); ``iters`` chains the calls."""
+    x = torch.randn(256, 512, generator=torch.Generator(device=cuda)
+                    .manual_seed(3), device=cuda)
+    for dtype in probe_vpu.dtypes(mode):
+        for k in probe_vpu.ks(mode):
+            xd = x.to(dtype)
+            probe_vpu.LAUNCHES = 0
+            got = probe_vpu.probe_vpu(xd, k, mode)
+            assert probe_vpu.LAUNCHES == 1 and got.dtype == dtype
+            assert probe_vpu.rel_err(got, probe_vpu.probe_vpu_ref(
+                xd, k, mode)) <= probe_vpu.TOL[dtype]
+            twice = probe_vpu.probe_vpu_cuda(xd, k, mode, iters=2)
+            assert probe_vpu.LAUNCHES == 3
+            assert probe_vpu.rel_err(twice, probe_vpu.probe_vpu_ref(
+                got, k, mode)) <= probe_vpu.TOL[dtype]
+            if dtype == torch.float32:
+                # exp's first call ends at its chain's fixed point, where
+                # the second call has no effect to carry
+                pairs = [(got, xd)] + ([] if mode == "exp" else [(twice, got)])
+                for out, inp in pairs:
+                    share = probe_vpu.work_share(out, inp, k, mode)
+                    assert abs(share - 1) <= probe_vpu.WORK_TOL, (k, share)
+
+
+def test_probe_mosaic_kernels_equal_plain_versions(cuda):
+    xs = probe_mosaic.inputs(cuda)
+    probe_mosaic.LAUNCHES = 0
+    for i, p in enumerate(probe_mosaic.PROBES):
+        got = probe_mosaic.probe_mosaic(i, xs[p.operand])
+        torch.testing.assert_close(got, p.plain(xs[p.operand]), rtol=0,
+                                   atol=0)
+    assert probe_mosaic.LAUNCHES == len(probe_mosaic.PROBES)
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_grad_cam_launches_the_backward_only_downstream(cuda, scan,
+                                                        monkeypatch):
+    """Two stages (1 and 2 blocks, two scans a block): a CAM forward makes
+    6 forward launches; its backward reaches the scans of the blocks after
+    the target only. CAMs within 1e-4 of the plain scan's at the same
+    activations (the kernels' forward's at the target and at every block's
+    output, substituted into the plain one, so every ReLU masks the same
+    elements)."""
+    from medmamba_tpu_torch.eval.gradcam import (block_paths,
+                                                 default_target_path,
+                                                 grad_cam,
+                                                 target_activations)
+
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    kw = dict(num_classes=3, depths=(1, 2), dims=(16, 32))
+    model = tv.VSSM(**kw).to(cuda).eval()
+    ref = tv.VSSM(**kw, scan_impl="ref").to(cuda).eval()
+    ref.load_state_dict(model.state_dict())
+    x = torch.randn(2, 32, 32, 3, device=cuda)
+    tc = [0, 2]
+    for target, downstream in ((None, 0), ("layers_1.blocks_0.conv1x1", 2),
+                               ("layers_0.blocks_0.conv_bn0", 4)):
+        scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+        scan_hillis.HILLIS_LAUNCHES = scan_hillis.HILLIS_BWD_LAUNCHES = 0
+        got = grad_cam(model, x, target_class=tc, target_path=target)
+        counts = (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES,
+                  scan_hillis.HILLIS_LAUNCHES,
+                  scan_hillis.HILLIS_BWD_LAUNCHES)
+        want_counts = (6, downstream, 0, 0) if scan == "ssd" \
+            else (0, 0, 6, downstream)
+        assert counts == want_counts, (target, counts)
+        sites = [target or default_target_path(model), *block_paths(model)]
+        want = grad_cam(ref, x, target_class=tc, target_paths=sites[:1],
+                        substitute=dict(zip(sites, target_activations(
+                            model, x, sites))))
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)

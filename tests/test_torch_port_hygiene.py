@@ -20,16 +20,25 @@ FORBIDDEN = re.compile(
 
 
 def test_importing_the_port_loads_no_jax():
+    """Also: importing the probes launches nothing and prints nothing (the
+    TPU tools ran their probes at import)."""
     code = ("import sys, medmamba_tpu_torch, medmamba_tpu_torch.cli.evaluate\n"
             "import medmamba_tpu_torch.cli.train\n"
             "import medmamba_tpu_torch.train.trainer\n"
             "import medmamba_tpu_torch.ops.scan_hillis\n"
+            "import medmamba_tpu_torch.cli.demo, medmamba_tpu_torch.cli.test\n"
+            "import medmamba_tpu_torch.eval.gradcam\n"
+            "import medmamba_tpu_torch.utils.png\n"
+            "from medmamba_tpu_torch.tools import probe_vpu, probe_mosaic\n"
+            "import medmamba_tpu_torch.tools.cam_agreement\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
+            "bad += [m.__name__ for m in (probe_vpu, probe_mosaic) "
+            "if m.LAUNCHES]\n"
             "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
-    assert out.stdout.strip() == "[]"
+    assert out.stdout == "[]\n"
 
 
 def test_sources_import_no_jax_package():
