@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      stage shapes (batch 64): float32 and bfloat16 in and out, each forward
      and reverse, the two mixed types (float32 in with a bfloat16 gy,
      bfloat16 in with a float32 gy), and reverse at L 3200 with valid_len
-     3136; K2's time per stage beside its bound and the plain version's;
+     3136; two K2 launches on the same stage-0 inputs must give the same
+     bits; K2's time per stage beside its bound, the plain version's and
+     the earlier design's (K2_EARLIER_MS);
   7. K5 against its plain version at 28^2 and 224^2 (batch 64), exactly;
      its time;
   8. the training path: ``medmamba_tpu_torch.cli.train`` on a synthetic 28^2
@@ -69,8 +71,11 @@ Phases, in order; any failure exits non-zero:
      mode that runs above its issue bound;
  18. P2 (``tools/probe_mosaic.py``, the 14 relayout probes) against their
      plain versions, exactly; kernel, library and plain times;
- 19. Grad-CAM: ``cli.test`` on a tree of 224^2 PNGs with a random
-     medmamba_t ``.pth``, 4 images at the default target (20 + 20 K1 and no
+ 19. the class-folder tree: ``cli.evaluate`` on a tree of 224^2 PNGs (no
+     PIL on the card's machine) with a random medmamba_t ``.pth``, 20 K1
+     launches for its one batch, the probabilities against the model's on
+     the same pixels; then Grad-CAM: ``cli.test`` on the same tree,
+     4 images at the default target (20 + 20 K1 and no
      K2 per image) and at two targets, the first upstream of 10 scans (20 +
      20 K1 and 10 K2 per image); each CAM against the same weights on the
      plain scan; one image under hillis (40 K3, 10 K4) against the ssd CAM;
@@ -122,8 +127,9 @@ TOP_KERNELS = 12
 TOL_FP32 = 1e-4
 TOL_BF16_OUT = 1e-2
 # K2 against its plain version: relative to each gradient's largest entry
-# (its atomics and shuffles sum in another order than the plain version's
-# loop); float32 1e-4, bfloat16 gradients 1e-2 (their last rounding).
+# (its shuffles and partial sums add in another order than the plain
+# version's loop); float32 1e-4, bfloat16 gradients 1e-2 (their last
+# rounding).
 # In the whole model (phase 9) K2 is held to the plain adjoint the same way:
 # one forward through K1, its backward once through K2 and once through
 # selective_scan_bwd_ref, every parameter's gradient within 1e-4 of its
@@ -138,6 +144,11 @@ TOL_BF16_OUT = 1e-2
 # input moves by a relative 2^-20.
 TOL_GRAD_MODEL = 1e-4
 INPUT_NUDGE = 2.0 ** -20
+# K2 ms per launch at each stage in its earlier design (one thread per
+# (b, d, n), dB/dC by shared and global atomics; commit 392b057 and before),
+# as PERF.md records its run at commit a08c9a5 on an NVIDIA H100 80GB HBM3 at
+# 700 W; printed beside this run's times
+K2_EARLIER_MS = (8.9309, 4.5878, 2.4794, 1.2762)
 # float32 operations the adjoint needs (a fused multiply-add counts 2), per
 # (b, d, n, t): recompute h_t (dt*A, (dt*u)*B, one FMA: 4), dh = C*gy +
 # carry (2), carry = a*dh (1), a*h_prev (1), q = dh*a*h_prev (1), and one
@@ -400,15 +411,27 @@ def phase_backward_vs_plain():
             x, states, gy = s
             return impl(*(x[k] for k in names), states, gy,
                         delta_softplus=True, **rev)
+        if si == 0:
+            # K2 adds its partial sums in a fixed order, with no atomics
+            first, second = bwd(sets[0]), bwd(sets[0])
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, first, second):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"K2 d{name}: two launches on the same "
+                                     "inputs differ")
+            log(f"  stage 0: two K2 launches give the same bits in d"
+                + ", d".join(names))
+            del first, second
         k_ms = back_to_back_ms(bwd, sets, 20)
         p_ms = back_to_back_ms(
             lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1, rounds=1)
         del sets
         stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches=2 * blocks, ms=k_ms,
+                           launches=2 * blocks, ms=k_ms, ms_earlier=K2_EARLIER_MS[si],
                            plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                            bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
-        log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms, plain "
+        log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms (earlier "
+            f"design: {K2_EARLIER_MS[si]:.4f} ms), plain "
             f"{p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
             f"{bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
             f"{exp_ms:.4f}), x{2 * blocks} per step")
@@ -719,7 +742,7 @@ def per_pass(stages: list) -> dict:
     """Stage rows summed over the 20 launches of a forward or a step."""
     out = {k: sum(s[k] * s["launches"] for s in stages)
            for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "doubling_ms",
-                     "exp_ms") if k in stages[0]}
+                     "exp_ms", "ms_earlier") if k in stages[0]}
     out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
     out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
                        else "operations")
@@ -1091,6 +1114,46 @@ DEFAULT_TARGET = ["layers_3.blocks_1.conv1x1"]
 UPSTREAM_BWD = 10
 
 
+def check_folder_eval(tree: str, pth: str, model) -> dict:
+    """cli.evaluate on the class-folder PNG tree: 20 K1 launches for its
+    one batch, and each image's probabilities within 1e-5 of the model's
+    softmax on the same pixels."""
+    import torch
+
+    from medmamba_tpu_torch.cli import evaluate
+    from medmamba_tpu_torch.data.datasets import FolderDataset
+
+    paths = [p for p, _ in FolderDataset(tree, load_size=IMAGE).samples]
+    reset_counts()
+    t0 = time.perf_counter()
+    cm, probs = evaluate.main(["--checkpoint_path", pth, "--data_dir", tree,
+                               "--batch_size", str(BATCH), "--image_size",
+                               str(IMAGE), "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  cli.evaluate on the PNG tree: {len(paths)} images in {wall:.2f} "
+        f"s with the model's load, launches {counts}")
+    if counts != expected_counts(K1=LAUNCHES_PER_FORWARD):
+        raise SystemExit(f"cli.evaluate on the tree launched {counts}, "
+                         f"expected {LAUNCHES_PER_FORWARD} K1 only")
+    if cm.matrix.sum() != len(paths) or probs.shape != (len(paths),
+                                                        NUM_CLASSES):
+        raise SystemExit(f"cli.evaluate on the tree counted "
+                         f"{cm.matrix.sum()} images, probabilities "
+                         f"{probs.shape}")
+    with torch.inference_mode():
+        x = torch.cat([load_image(p) for p in paths])
+        want = torch.softmax(model(x), -1).cpu().numpy()
+    err = float(abs(probs - want).max())
+    log(f"  probabilities against the model's on the same pixels: max|err| "
+        f"{err:.3e} (1e-5)")
+    if not err <= 1e-5:
+        raise SystemExit("cli.evaluate's probabilities on the tree differ "
+                         "from the model's")
+    return dict(wall_s=wall, prob_err=err)
+
+
 def phase_gradcam(root: str):
     """cli.test at the default target and at two targets, the first
     upstream of 10 scans: exact launch counts per image, each CAM against
@@ -1109,6 +1172,7 @@ def phase_gradcam(root: str):
     pth = os.path.join(root, "medmamba_t.pth")
     write_model_pth(model, pth)
     model.eval()
+    folder = check_folder_eval(tree, pth, model)
     ref = create_model("T", NUM_CLASSES, device="cuda", scan_impl="ref")
     ref.load_state_dict(model.state_dict())
     ref.eval()
@@ -1176,6 +1240,7 @@ def phase_gradcam(root: str):
     results["hillis_err"] = check_cam(
         "hillis CAM against the ssd CAM", out[0]["cam"], acts, model, x,
         [out[0]["pred"]], UPSTREAM_TARGETS)
+    results["folder_eval"] = folder
     return tree, pth, results
 
 
@@ -1397,7 +1462,7 @@ FAMILIES = (
     (FAMILY["K3"], r"hillis_fwd_kernel"),
     (FAMILY["K4"], r"hillis_bwd_kernel"),
     (FAMILY["K1"], r"scan_fwd_kernel"),
-    (FAMILY["K2"], r"scan_bwd_kernel"),
+    (FAMILY["K2"], r"scan_bwd_(reduce_)?kernel"),
     (FAMILY["K5"], r"rotate_flip_kernel"),
     ("convolution", r"conv|cudnn|fprop|winograd|implicit|nchw|nhwc"),
     ("matmul", r"gemm|gemv|cutlass|xmma|cublas|splitK"),
@@ -1546,7 +1611,8 @@ def main() -> int:
     bwd_stages, k2_err = phase_backward_vs_plain()
     per_step = per_pass(bwd_stages)
     log(f"  K2 per step ({LAUNCHES_PER_FORWARD} launches): "
-        f"{per_step['ms']:.4f} ms; bound {per_step['bound_ms']:.4f} ms "
+        f"{per_step['ms']:.4f} ms (earlier design: "
+        f"{per_step['ms_earlier']:.4f} ms); bound {per_step['bound_ms']:.4f} ms "
         f"(bytes {per_step['bytes_ms']:.4f}, fp32 ops "
         f"{per_step['ops_ms']:.4f}); exp units {per_step['exp_ms']:.4f} ms; "
         f"plain {per_step['plain_ms']:.1f} ms")
@@ -1630,7 +1696,8 @@ def main() -> int:
     p2 = sum_rows(p2_rows)
     log("p2 " + json.dumps(p2_rows))
 
-    log("phase 19: Grad-CAM through cli.test (medmamba_t 224^2)")
+    log("phase 19: cli.evaluate on a class-folder PNG tree, and Grad-CAM "
+        "through cli.test (medmamba_t 224^2)")
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         tree, pth, cams = phase_gradcam(root)
 
@@ -1660,7 +1727,7 @@ def main() -> int:
         "max_abs_err": k2_err,
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "ms_earlier_design": per_step["ms_earlier"],
         "profiled_ms_per_train_step": fam.get(FAMILY["K2"], 0.0),
         "model_grad_rel_err": grad_err,
         "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan}, {
@@ -1718,7 +1785,8 @@ def main() -> int:
             k: cams[k]["s_per_image"] for k in ("default", "upstream")},
             "cam_err_vs_plain_scan": max(cams["default"]["cam_err"],
                                          cams["upstream"]["cam_err"]),
-            "hillis_cam_err": cams["hillis_err"]},
+            "hillis_cam_err": cams["hillis_err"],
+            "folder_eval": cams["folder_eval"]},
         "demo": demo_out,
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
         "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()}}))

@@ -51,6 +51,13 @@ def main(argv=None):
     """Run the evaluation; returns the ConfusionMatrix and the softmax
     probabilities of the real (unpadded) rows, in data order."""
     args = parse_args(argv)
+    if args.plot:
+        # refused before any work: the heatmap is drawn after the evaluation
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("--plot needs matplotlib, which is not "
+                             "installed")
     import numpy as np
     import torch
 

@@ -12,7 +12,8 @@ data layer:
 Unlike the reference (per-item PIL transforms in DataLoader workers), these classes
 only *load and batch raw uint8 arrays*; all geometric/color preprocessing happens
 on the device in ``medmamba_tpu_torch.data.transforms``, batched. NPZ mode
-imports no PIL.
+imports no PIL; folder mode imports it only for a file that neither the native
+library nor ``utils/png.py`` decodes.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from medmamba_tpu_torch.utils import png
 
 IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".gif", ".tif", ".tiff", ".webp")
 
@@ -70,13 +73,11 @@ class NpzDataset:
 class FolderDataset:
     """Class-folder image tree (torchvision ImageFolder semantics).
 
-    Images are decoded lazily with PIL and resized to a common ``load_size`` at
-    load time (decode cost is per-image anyway); augmentation still runs on-device.
+    Images are decoded lazily and resized to a common ``load_size`` at load
+    time (decode cost is per-image anyway); augmentation still runs on-device.
     """
 
     def __init__(self, root: str, load_size: int = 224):
-        from PIL import Image  # local import: PIL only needed in folder mode
-        self._Image = Image
         self.root = root
         self.load_size = load_size
         classes = sorted(
@@ -99,17 +100,24 @@ class FolderDataset:
         return len(self.samples)
 
     def _load_one(self, path: str) -> np.ndarray:
-        img = self._Image.open(path).convert("RGB")
-        if img.size != (self.load_size, self.load_size):
-            img = img.resize((self.load_size, self.load_size),
-                             self._Image.BILINEAR)
-        return np.asarray(img, np.uint8)
+        """``Image.open(path).convert("RGB")`` resized to ``load_size`` with
+        PIL's bilinear filter, as the JAX data layer loads a file: a PNG
+        already at ``load_size`` decodes without PIL, any other file needs
+        it."""
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            return png.load_rgb(data, self.load_size)
+        except ImportError as e:
+            raise RuntimeError(
+                f"{path}: only PNGs of {self.load_size}x{self.load_size} "
+                "decode without PIL, which is not installed") from e
 
     def get_batch(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         from medmamba_tpu_torch.data import native
         paths = [self.samples[i][0] for i in idx]
         imgs = native.batch_decode_resize(paths, self.load_size)
-        if imgs is None:  # fallback: PIL per-image decode
+        if imgs is None:  # no native library, or a file it did not decode
             imgs = np.stack([self._load_one(p) for p in paths])
         return imgs, self.labels[idx]
 

@@ -6,7 +6,9 @@ Counterparts of ``medmamba_tpu/ops/pallas_scan.py``'s ``_fwd_kernel_ssd`` and
 first launch.
 
 ``LAUNCHES`` counts K1 launches made through :func:`selective_scan_fwd` and
-``BWD_LAUNCHES`` K2 launches made through :func:`selective_scan_bwd`.
+``BWD_LAUNCHES`` K2 launches made through :func:`selective_scan_bwd`. K2 is
+a pair of kernels, the scan's adjoint and the fixed-order sum of its
+partials, launched together by one call: the pair counts as one launch.
 """
 from __future__ import annotations
 
@@ -36,9 +38,12 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    ws = lib.medmamba_selective_scan_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+    ws.restype = None
 
 
 def _check(name: str, x: torch.Tensor, device, dtypes, shape) -> None:
@@ -178,22 +183,27 @@ def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     du = torch.empty((b, d, l), dtype=u.dtype, device=device)
     ddelta = torch.empty_like(delta)
     f32 = dict(dtype=torch.float32, device=device)
-    dA = torch.zeros((d, N_STATE), **f32)
-    dB = torch.zeros((b, g, N_STATE, l), **f32)
-    dC = torch.zeros((b, g, N_STATE, l), **f32)
-    dD = torch.zeros((d,), **f32) if D is not None else None
-    dbias = torch.zeros((d,), **f32) if delta_bias is not None else None
+    dA = torch.empty((d, N_STATE), **f32)
+    dB = torch.empty((b, g, N_STATE, l), **f32)
+    dC = torch.empty((b, g, N_STATE, l), **f32)
+    dD = torch.empty((d,), **f32) if D is not None else None
+    dbias = torch.empty((d,), **f32) if delta_bias is not None else None
     lib = cuda_build.load(BWD_SOURCE, _declare_bwd)
+    # the kernel's partial sums, which its second kernel adds in a fixed
+    # order: dB/dC per channel block, dA, dD and dbias per batch row
+    sizes = (ctypes.c_longlong * 4)()
+    lib.medmamba_selective_scan_bwd_workspace(b, g, dpg, l, sizes)
+    ws = [torch.empty((n,), **f32) for n in sizes]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.medmamba_selective_scan_bwd(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), _ptr(D), _ptr(delta_bias), states.data_ptr(),
             gy.data_ptr(), du.data_ptr(), ddelta.data_ptr(), dA.data_ptr(),
-            dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias), b, g,
-            g // u_tile, dpg, N_STATE, l, valid_len,
-            int(bool(delta_softplus)), rev_mask, _DTYPE_CODE[u.dtype],
-            _DTYPE_CODE[gy.dtype], stream)
+            dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias),
+            *(w.data_ptr() for w in ws), b, g, g // u_tile, dpg, N_STATE, l,
+            valid_len, int(bool(delta_softplus)), rev_mask,
+            _DTYPE_CODE[u.dtype], _DTYPE_CODE[gy.dtype], stream)
     cuda_build.check_launch(lib, rc, "selective-scan backward")
     BWD_LAUNCHES += 1
     if u_tile > 1:

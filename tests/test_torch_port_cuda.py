@@ -7,9 +7,10 @@ counts of a Grad-CAM. Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
 differ only in the order of float32 operations and fused multiply-adds;
-K2's gradients relative to each gradient's largest entry, since its
-atomics sum in a varying order); bfloat16 outputs 1e-2 (their last
-rounding, 2^-8 relative); K5 and P2 exact; P1 as ``probe_vpu.TOL``.
+K2's gradients relative to each gradient's largest entry, since it sums
+over channels, states and steps in another order); bfloat16 outputs 1e-2
+(their last rounding, 2^-8 relative); K5 and P2 exact; P1 as
+``probe_vpu.TOL``.
 """
 import math
 
@@ -121,8 +122,57 @@ def _rel_close(got, want, tol):
 
 @pytest.mark.parametrize("case", sorted(BWD_CASES))
 def test_states_and_backward_match_plain_versions(cuda, case):
-    kw = dict(BWD_CASES[case])
-    shape = {k: kw.pop(k) for k in ("dpg", "dtype") if k in kw}
+    _check_backward(cuda, BWD_CASES[case])
+
+
+# shapes at K2's edges: channel counts that its 32-channel blocks do not
+# divide, lengths that neither its 16-step sub-tiles nor the 64-step tiles
+# divide (3136 is medmamba_t's first stage), valid_len below L, a shared u
+EDGE_SHAPES = {
+    "dpg4": dict(dpg=4),
+    "dpg40": dict(dpg=40),
+    "l49": dict(l=49),
+    "l100": dict(l=100),
+    "l3136": dict(l=3136, b=1, dpg=8),
+    "valid_len": dict(valid_len=131),
+    "u_tile": dict(u_tile=2),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", sorted(EDGE_SHAPES))
+def test_backward_matches_plain_version_at_edge_shapes(cuda, shape, reverse,
+                                                       dtype):
+    kw = dict(EDGE_SHAPES[shape])
+    if reverse:
+        kw["reverse_dirs"] = (True, True)
+    if dtype == "bfloat16":
+        kw.update(dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    _check_backward(cuda, kw)
+
+
+def test_backward_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: K2 adds its
+    partial sums in a fixed order and writes no output with an atomic."""
+    x = _inputs(cuda, dpg=40, l=200)
+    _, _, states = scan_cuda.selective_scan_fwd(
+        **x, delta_softplus=True, reverse_dirs=(False, True),
+        return_states=True)
+    gy = torch.randn(x["delta"].shape, device=cuda)
+    args = [x[k] for k in NAMES]
+    kw = dict(delta_softplus=True, reverse_dirs=(False, True))
+    first = scan_cuda.selective_scan_bwd(*args, states, gy, **kw)
+    second = scan_cuda.selective_scan_bwd(*args, states, gy, **kw)
+    for name, a, b in zip(NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+def _check_backward(cuda, case):
+    """K1's tile-entry states and K2 against their plain versions, each
+    gradient relative to its largest entry."""
+    kw = dict(case)
+    shape = {k: kw.pop(k) for k in ("b", "dpg", "l", "dtype") if k in kw}
     skip = kw.pop("skip", True)
     x = _inputs(cuda, u_tile=kw.get("u_tile", 1), **shape)
     if not skip:

@@ -19,7 +19,8 @@ from medmamba_tpu_torch.ops.selective_scan import (_tile_starts,
                                                    selective_scan,
                                                    selective_scan_bwd_ref,
                                                    selective_scan_states_ref)
-from test_torch_port_scan import CONTRACT_CASES, _inputs
+from test_torch_port_scan import (  # noqa: F401
+    CONTRACT_CASES, _inputs, _settle_torch_exp)
 
 NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 TOL = 1e-5

@@ -22,7 +22,7 @@ import torch
 from medmamba_tpu.ops import pallas_scan as jps
 from medmamba_tpu_torch.ops import scan_hillis
 from medmamba_tpu_torch.ops import selective_scan as ts
-from test_torch_port_scan import _inputs
+from test_torch_port_scan import _inputs, _settle_torch_exp  # noqa: F401
 
 NAMES = ("u", "delta", "A", "B", "C", "D", "delta_bias")
 LOW = ("u", "delta", "B", "C")         # the operands that may be bfloat16
