@@ -28,8 +28,9 @@ Phases, in order; any failure exits non-zero:
      and reverse, the two mixed types (float32 in with a bfloat16 gy,
      bfloat16 in with a float32 gy), and reverse at L 3200 with valid_len
      3136; two K2 launches on the same stage-0 inputs must give the same
-     bits; K2's time per stage beside its bound, the plain version's and
-     the earlier design's (K2_EARLIER_MS);
+     bits; K2's time per stage beside its bound and the plain version's,
+     and in the log the earlier design's times as timed at a08c9a5
+     (K2_EARLIER_MS, constants this run does not measure);
   7. K5 against its plain version at 28^2 and 224^2 (batch 64), exactly;
      its time;
   8. the training path: ``medmamba_tpu_torch.cli.train`` on a synthetic 28^2
@@ -427,11 +428,11 @@ def phase_backward_vs_plain():
             lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1, rounds=1)
         del sets
         stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches=2 * blocks, ms=k_ms, ms_earlier=K2_EARLIER_MS[si],
+                           launches=2 * blocks, ms=k_ms,
                            plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                            bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
         log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms (earlier "
-            f"design: {K2_EARLIER_MS[si]:.4f} ms), plain "
+            f"design as timed at a08c9a5: {K2_EARLIER_MS[si]:.4f} ms), plain "
             f"{p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
             f"{bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
             f"{exp_ms:.4f}), x{2 * blocks} per step")
@@ -742,7 +743,7 @@ def per_pass(stages: list) -> dict:
     """Stage rows summed over the 20 launches of a forward or a step."""
     out = {k: sum(s[k] * s["launches"] for s in stages)
            for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "doubling_ms",
-                     "exp_ms", "ms_earlier") if k in stages[0]}
+                     "exp_ms") if k in stages[0]}
     out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
     out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
                        else "operations")
@@ -1610,9 +1611,11 @@ def main() -> int:
     log("phase 6: K1 states and K2 against their plain versions")
     bwd_stages, k2_err = phase_backward_vs_plain()
     per_step = per_pass(bwd_stages)
+    earlier_ms = sum(K2_EARLIER_MS[s["stage"]] * s["launches"]
+                     for s in bwd_stages)
     log(f"  K2 per step ({LAUNCHES_PER_FORWARD} launches): "
-        f"{per_step['ms']:.4f} ms (earlier design: "
-        f"{per_step['ms_earlier']:.4f} ms); bound {per_step['bound_ms']:.4f} ms "
+        f"{per_step['ms']:.4f} ms (earlier design as timed at a08c9a5: "
+        f"{earlier_ms:.4f} ms); bound {per_step['bound_ms']:.4f} ms "
         f"(bytes {per_step['bytes_ms']:.4f}, fp32 ops "
         f"{per_step['ops_ms']:.4f}); exp units {per_step['exp_ms']:.4f} ms; "
         f"plain {per_step['plain_ms']:.1f} ms")
@@ -1727,7 +1730,7 @@ def main() -> int:
         "max_abs_err": k2_err,
         "ms": per_step["ms"], "plain_ms": per_step["plain_ms"],
         "bound_ms": per_step["bound_ms"], "bound_by": per_step["bound_by"],
-        "library_ms": None, "ms_earlier_design": per_step["ms_earlier"],
+        "library_ms": None,
         "profiled_ms_per_train_step": fam.get(FAMILY["K2"], 0.0),
         "model_grad_rel_err": grad_err,
         "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan}, {

@@ -37,12 +37,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library built from ``source`` (a file name in ``csrc/``, or
-    a path) lives; the compiler's resource report (``-Xptxas -v``) sits
-    beside it as ``<name>.log``."""
+    """Where the library built from ``source`` (a file name in ``csrc/``)
+    lives; the compiler's resource report (``-Xptxas -v``) sits beside it
+    as ``<name>.log``."""
     with open(os.path.join(CSRC, source), "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(os.path.basename(source))[0]
+    stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{key.hexdigest()[:16]}.so")
 
 

@@ -126,8 +126,10 @@ def test_states_and_backward_match_plain_versions(cuda, case):
 
 
 # shapes at K2's edges: channel counts that its 32-channel blocks do not
-# divide, lengths that neither its 16-step sub-tiles nor the 64-step tiles
-# divide (3136 is medmamba_t's first stage), valid_len below L, a shared u
+# divide, lengths that neither its 8-step sub-tiles nor the 64-step tiles
+# divide (49, 100: a partial last sub-tile, walked as identity steps),
+# medmamba_t's first stage (3136 = 49 full tiles), valid_len below L, a
+# shared u
 EDGE_SHAPES = {
     "dpg4": dict(dpg=4),
     "dpg40": dict(dpg=40),

@@ -31,6 +31,7 @@ from medmamba_tpu_torch.models import vssm as tv
 from medmamba_tpu_torch.utils import png
 from medmamba_tpu_torch.utils.convert import state_dict_from_jax
 from test_torch_port_model import _init
+from test_torch_port_scan import _settle_torch_exp  # noqa: F401
 
 TINY = dict(depths=(1, 1), dims=(8, 16), d_state=4, drop_path_rate=0.0)
 SIZE = 32

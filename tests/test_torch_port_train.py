@@ -31,6 +31,7 @@ from medmamba_tpu_torch.train.checkpoint import restore_params
 from medmamba_tpu_torch.utils.convert import (state_dict_from_jax,
                                               state_dict_to_jax)
 from test_torch_port_model import _init
+from test_torch_port_scan import _settle_torch_exp  # noqa: F401
 
 SMALL = dict(num_classes=4, depths=(1, 1), dims=(16, 32))
 TOL = dict(rtol=1e-4, atol=1e-4)
