@@ -11,11 +11,16 @@ Phases, in order; any failure exits non-zero:
      and K4 (the doubling scan that MEDMAMBA_SCAN_KERNEL=hillis selects, and
      its backward) and K5 (flip + rotation) from medmamba_tpu_torch/csrc/,
      one nvcc for each source, all started together; their registers,
-     shared memory, spills;
+     shared memory, spills; K1's layout at each stage shape (channels a
+     block, dynamic shared memory, registers, blocks an SM);
   3. K1 against its plain PyTorch version on the card, at the four
      medmamba_t stage shapes (batch 64), forward and reverse, float32 and
      bfloat16 inputs, with valid_len and with the last state; times of the
-     kernel and the plain version beside the kernel's bound;
+     kernel and the plain version beside the kernel's bound; then at batch 1
+     (the demo's and cli.test's shape, where K1 launches 8-channel blocks)
+     against the plain version and timed, by events and by the profiler's
+     device time; in the log the earlier design's times as timed at 385f291
+     (K1_EARLIER_MS, constants this run does not measure);
   4. the serving path: ``medmamba_tpu_torch.cli.evaluate`` on a synthetic
      NPZ test split with a random medmamba_t ``.pth`` at 224^2, batch 64; K1
      must launch exactly 20 times per batch, and one batch's logits must
@@ -123,8 +128,9 @@ L2_BYTES = 50 * 2**20
 PROFILE_STEPS = 5
 TOP_KERNELS = 12
 # float32 kernel vs plain version: the same float32 arithmetic in another
-# order (fused multiply-adds, the 16-lane shuffle reduction): 1e-4 relative
-# and absolute. bfloat16 output: its final rounding, 2^-8 relative: 1e-2.
+# order (fused multiply-adds, y's sum over states taken across a channel's
+# lanes): 1e-4 relative and absolute. bfloat16 output: its final rounding,
+# 2^-8 relative: 1e-2.
 TOL_FP32 = 1e-4
 TOL_BF16_OUT = 1e-2
 # K2 against its plain version: relative to each gradient's largest entry
@@ -145,6 +151,13 @@ TOL_BF16_OUT = 1e-2
 # input moves by a relative 2^-20.
 TOL_GRAD_MODEL = 1e-4
 INPUT_NUDGE = 2.0 ** -20
+# K1 ms per launch at each stage in its earlier design (one thread per
+# (b, d, n), 8-channel blocks, a 4-level shuffle tree per step; commit
+# 385f291 and before), as PERF.md records it, timed beside the new design in
+# one call on an NVIDIA H100 80GB HBM3 at 700 W: batch 64 by events, batch 1
+# by the profiler's device time; printed beside this run's times
+K1_EARLIER_MS = {64: (1.4460, 0.5978, 0.2922, 0.1593),
+                 1: (0.6177, 0.1602, 0.0381, 0.0102)}
 # K2 ms per launch at each stage in its earlier design (one thread per
 # (b, d, n), dB/dC by shared and global atomics; commit 392b057 and before),
 # as PERF.md records its run at commit a08c9a5 on an NVIDIA H100 80GB HBM3 at
@@ -210,7 +223,7 @@ def back_to_back_ms(fn, inputs: list, reps: int, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
-def scan_inputs(dpg: int, l: int, dtype, gen):
+def scan_inputs(dpg: int, l: int, dtype, gen, batch: int = BATCH):
     """Scan operands at one stage shape, with the model's magnitudes: A near
     the S4D init -(1..16), the dt bias the inverse softplus of a log-uniform
     dt in [1e-3, 0.1]."""
@@ -226,12 +239,30 @@ def scan_inputs(dpg: int, l: int, dtype, gen):
     dt0 = torch.exp(math.log(1e-3) + math.log(100.0)
                     * torch.rand(d, generator=gen, device=dev))
     return dict(
-        u=rnd(BATCH, d, l).to(dtype),
-        delta=rnd(BATCH, d, l, scale=0.5).to(dtype),
+        u=rnd(batch, d, l).to(dtype),
+        delta=rnd(batch, d, l, scale=0.5).to(dtype),
         A=-(a_row * (1 + 0.1 * rnd(d, 1))).contiguous(),
-        B=rnd(BATCH, GROUPS, N_STATE, l).to(dtype),
-        C=rnd(BATCH, GROUPS, N_STATE, l).to(dtype), D=rnd(d),
+        B=rnd(batch, GROUPS, N_STATE, l).to(dtype),
+        C=rnd(batch, GROUPS, N_STATE, l).to(dtype), D=rnd(d),
         delta_bias=dt0 + torch.log(-torch.expm1(-dt0)))
+
+
+def kernel_device_ms(fn, inputs: list, pattern: str, reps: int = 20) -> float:
+    """The profiler's device time per launch of the kernels matching
+    ``pattern`` over ``reps`` calls of ``fn`` cycling through ``inputs``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if re.search(pattern, e.name)]
+    if len(spans) != reps:
+        raise SystemExit(f"the profiler saw {len(spans)} launches of "
+                         f"{pattern}, expected {reps}")
+    return sum(spans) / 1e3 / reps
 
 
 def scan_costs(dpg: int, l: int):
@@ -288,10 +319,35 @@ def phase_kernel_vs_plain():
                            launches=2 * blocks, ms=k_ms,
                            plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                            bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
-        log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, "
+        log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms "
+            f"(earlier design as timed at 385f291: "
+            f"{K1_EARLIER_MS[BATCH][si]:.4f} ms), "
             f"plain {p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
             f"(bytes {bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
             f"{exp_ms:.4f}), x{2 * blocks} per forward")
+
+    # batch 1, the demo's and cli.test's shape: 8-channel blocks
+    for si, (dpg, l, blocks) in enumerate(STAGES):
+        xs = [scan_inputs(dpg, l, torch.float32, gen, batch=1)
+              for _ in range(8)]
+        for kw in ({}, {"reverse_dirs": (True, True)}):
+            got = selective_scan(**xs[0], delta_softplus=True, **kw)
+            want = selective_scan(**xs[0], delta_softplus=True, impl="ref",
+                                  **kw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=TOL_FP32,
+                                       atol=TOL_FP32)
+            max_err = max(max_err, (got - want).abs().max().item())
+
+        def fwd1(x):
+            return selective_scan(**x, delta_softplus=True)
+        b1_ms = back_to_back_ms(fwd1, xs, 20)
+        b1_dev = kernel_device_ms(fwd1, xs, r"scan_fwd_kernel")
+        stages[si].update(ms_batch1=b1_ms, device_ms_batch1=b1_dev)
+        log(f"  stage {si} D={GROUPS * dpg} L={l} batch 1: kernel "
+            f"{b1_ms:.4f} ms back to back through the wrapper, device "
+            f"{b1_dev:.4f} ms (earlier design's device time as timed at "
+            f"385f291: {K1_EARLIER_MS[1][si]:.4f} ms)")
 
     # the SS2D padding pattern (L 3136 -> 3200, valid_len 3136) with the last
     # state, in reverse; then a forward-prefix/reverse-suffix launch on a
@@ -1584,6 +1640,15 @@ def main() -> int:
                         "Compiling entry" in line:
                     log(f"  ptxas {os.path.basename(lib)}: {line.strip()}")
 
+    for batch in (BATCH, 1):
+        for si, (dpg, l, _) in enumerate(STAGES):
+            cfg = scan_cuda.selective_scan_fwd_config(batch, GROUPS, dpg)
+            log(f"  K1 at batch {batch} stage {si}: "
+                f"{cfg['channels_per_block']} channels a block, "
+                f"{cfg['smem_bytes']} B of dynamic shared memory, "
+                f"{cfg['registers']} registers, {cfg['blocks_per_sm']} "
+                "blocks an SM")
+
     log("phase 3: K1 against its plain version")
     stages, max_err = phase_kernel_vs_plain()
 
@@ -1600,11 +1665,20 @@ def main() -> int:
     log(f"  medmamba_t eval forward, 224^2, batch {BATCH}, float32 "
         f"without TF32: "
         f"{fwd_ms:.3f} ms, {img_s:.1f} img/s")
+    k1_earlier = {b: sum(ms[s["stage"]] * s["launches"] for s in stages)
+                  for b, ms in K1_EARLIER_MS.items()}
+    k1_b1 = {k: sum(s[k] * s["launches"] for s in stages)
+             for k in ("ms_batch1", "device_ms_batch1")}
     log(f"  K1 per forward ({LAUNCHES_PER_FORWARD} launches): "
         f"{per_fwd['ms']:.4f} ms = {100 * per_fwd['ms'] / fwd_ms:.1f}% of "
-        f"the forward; bound {per_fwd['bound_ms']:.4f} ms; exp units "
-        f"{per_fwd['exp_ms']:.4f} ms; plain {per_fwd['plain_ms']:.1f} ms; "
-        f"profiler device time {k1_device_ms:.4f} ms")
+        f"the forward (earlier design as timed at 385f291: "
+        f"{k1_earlier[BATCH]:.4f} ms); bound {per_fwd['bound_ms']:.4f} ms; "
+        f"exp units {per_fwd['exp_ms']:.4f} ms; plain "
+        f"{per_fwd['plain_ms']:.1f} ms; profiler device time "
+        f"{k1_device_ms:.4f} ms")
+    log(f"  K1 per batch-1 forward: {k1_b1['ms_batch1']:.4f} ms back to "
+        f"back, device {k1_b1['device_ms_batch1']:.4f} ms (earlier design's "
+        f"device time as timed at 385f291: {k1_earlier[1]:.4f} ms)")
     log("stages " + json.dumps(stages))
     log("profile " + json.dumps(prof_line))
 
@@ -1721,6 +1795,8 @@ def main() -> int:
         "library_ms": None,
         "profiled_ms_per_forward": k1_device_ms,
         "profiled_ms_per_train_step": fam.get(FAMILY["K1"], 0.0),
+        "ms_per_forward_batch1": k1_b1["ms_batch1"],
+        "device_ms_per_forward_batch1": k1_b1["device_ms_batch1"],
         "eval_img_s": img_s}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",

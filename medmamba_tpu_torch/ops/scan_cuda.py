@@ -34,6 +34,9 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    cfg = lib.medmamba_selective_scan_fwd_config
+    cfg.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    cfg.restype = ctypes.c_int
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
@@ -151,6 +154,23 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     cuda_build.check_launch(lib, rc, "selective-scan forward")
     LAUNCHES += 1
     return y, last, states
+
+
+def selective_scan_fwd_config(batch: int, groups: int, dpg: int,
+                              in_dtype=torch.float32,
+                              out_dtype=torch.float32) -> dict:
+    """What K1 launches for these sizes on the current card: channels per
+    block (32 when there are enough such blocks to fill the card, else 8),
+    bytes of dynamic shared memory a block, registers a thread and blocks an
+    SM can hold."""
+    lib = cuda_build.load(FWD_SOURCE, _declare_fwd)
+    info = (ctypes.c_int * 4)()
+    rc = lib.medmamba_selective_scan_fwd_config(
+        batch, groups, dpg, _DTYPE_CODE[in_dtype], _DTYPE_CODE[out_dtype],
+        info)
+    cuda_build.check_launch(lib, rc, "selective-scan forward config")
+    return dict(channels_per_block=info[0], smem_bytes=info[1],
+                registers=info[2], blocks_per_sm=info[3])
 
 
 def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,

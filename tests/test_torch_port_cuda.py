@@ -80,6 +80,91 @@ def test_kernel_matches_plain_version(cuda, case):
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 
 
+# shapes at K1's edges, each at both of its widths: channel counts that its
+# 32-channel blocks do not divide (4, 13, 40), lengths around its 64-step tile
+# (1, 49, 63, 65, 100: float32 rows at 49, 63 and 65 and bfloat16 rows at
+# 49, 63, 65 and 100 are not 16-byte aligned and take its plain-load
+# staging), medmamba_t's first stage (3136 = 49 full tiles), the SS2D padding
+# pattern (3200 with valid_len 3136), a shared u with mixed directions, and
+# batch 1 (8-channel blocks only). "wide" raises the batch until there are
+# 132 blocks of 32 channels, where K1 launches that layout; "narrow" keeps a
+# batch below it, where K1 launches 8-channel blocks.
+K1_EDGE_SHAPES = {
+    "dpg4": dict(dpg=4),
+    "dpg13": dict(dpg=13),
+    "dpg40": dict(dpg=40),
+    "l1": dict(l=1),
+    "l49": dict(l=49),
+    "l63": dict(l=63),
+    "l65": dict(l=65),
+    "l100": dict(l=100),
+    "l3136": dict(l=3136, dpg=8, b=1),
+    "valid_len": dict(l=3200, valid_len=3136, dpg=8, b=1),
+    "u_tile": dict(u_tile=2),
+    "batch1": dict(b=1),
+}
+K1_EDGE_CASES = [(shape, width) for shape in sorted(K1_EDGE_SHAPES)
+                 for width in ("narrow", "wide")
+                 if not (shape == "batch1" and width == "wide")]
+
+
+def _k1_edge_launch(cuda, shape, width, reverse, dtype):
+    """K1 at one edge shape and width; returns its outputs, the plain
+    versions' and the operands' dtype."""
+    kw = dict(K1_EDGE_SHAPES[shape])
+    dims = {k: kw.pop(k) for k in ("b", "dpg", "l") if k in kw}
+    u_tile = kw.pop("u_tile", 1)
+    g, dpg = 2, dims.get("dpg", 24)
+    if width == "wide":
+        dims["b"] = -(-132 // (g * -(-dpg // 32)))
+    b = dims.get("b", 3)
+    dtype = getattr(torch, dtype)
+    cfg = scan_cuda.selective_scan_fwd_config(b, g, dpg, dtype, dtype)
+    assert cfg["channels_per_block"] == (32 if width == "wide" else 8), cfg
+    kw["reverse_dirs"] = (not reverse, reverse) if u_tile > 1 \
+        else (reverse, reverse)
+    x = _inputs(cuda, u_tile=u_tile, dtype=dtype, **dims)
+    got = scan_cuda.selective_scan_fwd(
+        **x, delta_softplus=True, u_tile=u_tile, out_dtype=dtype,
+        return_last_state=True, return_states=True, **kw)
+    want = selective_scan(**x, delta_softplus=True, impl="ref", u_tile=u_tile,
+                          out_dtype=dtype, return_last_state=True, **kw)
+    want_states = selective_scan_states_ref(
+        x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"], True,
+        kw["reverse_dirs"], u_tile, kw.get("valid_len"))
+    torch.cuda.synchronize()
+    return got, (*want, want_states), dtype
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,width", K1_EDGE_CASES)
+def test_forward_matches_plain_version_at_edge_shapes(cuda, shape, width,
+                                                      reverse, dtype):
+    """y (float32 1e-4, bfloat16 y 1e-2), the last state and the
+    tile-entry states (float32, 1e-4) against the plain versions."""
+    (y, last, states), (y_r, last_r, states_r), dt = _k1_edge_launch(
+        cuda, shape, width, reverse, dtype)
+    assert y.dtype == y_r.dtype == dt
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y, y_r, rtol=tol, atol=tol)
+    torch.testing.assert_close(last, last_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(states, states_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+def test_forward_is_deterministic(cuda, width):
+    """Two launches on the same inputs give the same bits: y, the last
+    state and the tile-entry states (K1 writes no output with an atomic)."""
+    x = _inputs(cuda, b=3 if width == "narrow" else 66, dpg=40, l=200)
+    kw = dict(delta_softplus=True, reverse_dirs=(False, True),
+              return_last_state=True, return_states=True)
+    first = scan_cuda.selective_scan_fwd(**x, **kw)
+    second = scan_cuda.selective_scan_fwd(**x, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_model_runs_the_kernel_twice_per_block(cuda):
     assert not torch.backends.cudnn.allow_tf32
     model = tv.VSSM(num_classes=3, depths=(1, 2), dims=(16, 32)).to(cuda).eval()
@@ -129,7 +214,8 @@ def test_states_and_backward_match_plain_versions(cuda, case):
 # divide, lengths that neither its 8-step sub-tiles nor the 64-step tiles
 # divide (49, 100: a partial last sub-tile, walked as identity steps),
 # medmamba_t's first stage (3136 = 49 full tiles), valid_len below L, a
-# shared u
+# shared u. At these batches K1 makes the states with its 8-channel blocks;
+# K1_EDGE_SHAPES above holds its states at both widths.
 EDGE_SHAPES = {
     "dpg4": dict(dpg=4),
     "dpg40": dict(dpg=40),

@@ -7,6 +7,9 @@ scan, and ``selective_scan_bwd_ref``, the explicit adjoint that is K2's plain
 version. float32 gradients agree to 1e-5, relative to each gradient's
 largest entry (they are sums over up to L * b products).
 """
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from medmamba_tpu.ops.selective_scan import selective_scan as jax_scan
 from medmamba_tpu.ops.selective_scan import selective_scan_seq
+from medmamba_tpu_torch.ops import scan_cuda
 from medmamba_tpu_torch.ops.selective_scan import (_tile_starts,
                                                    selective_scan,
                                                    selective_scan_bwd_ref,
@@ -151,3 +155,16 @@ def test_states_ref_matches_jax_prefix_scans(case):
                 delta_softplus=True, return_last_state=True)
             np.testing.assert_allclose(states[:, ch, tile], np.asarray(last),
                                        rtol=TOL, atol=TOL)
+
+
+def test_k1_and_k2_share_the_tile():
+    """K2 recomputes each tile from the state K1 saved at its entry, so both
+    kernels' tile (``kT`` in their sources) is the wrapper's ``TILE``, the
+    64 steps whose entry states the test above holds."""
+    csrc = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(scan_cuda.__file__))), "csrc")
+    assert scan_cuda.TILE == 64
+    for source in (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE):
+        with open(os.path.join(csrc, source)) as f:
+            tiles = re.findall(r"constexpr int kT = (\d+);", f.read())
+        assert tiles == [str(scan_cuda.TILE)], (source, tiles)
