@@ -249,20 +249,23 @@ def scan_inputs(dpg: int, l: int, dtype, gen, batch: int = BATCH):
 
 def kernel_device_ms(fn, inputs: list, pattern: str, reps: int = 20) -> float:
     """The profiler's device time per launch of the kernels matching
-    ``pattern`` over ``reps`` calls of ``fn`` cycling through ``inputs``."""
+    ``pattern`` over ``reps`` calls of ``fn`` cycling through ``inputs``:
+    the mean over the launches it recorded. A first session, discarded,
+    starts the tracer (the first one in a process can miss launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(inputs[i % len(inputs)])
-        torch.cuda.synchronize()
+    for warm_up in (True, False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(2 if warm_up else reps):
+                fn(inputs[i % len(inputs)])
+            torch.cuda.synchronize()
     spans = [e.time_range.end - e.time_range.start for e in prof.events()
              if re.search(pattern, e.name)]
-    if len(spans) != reps:
+    if 2 * len(spans) < reps:
         raise SystemExit(f"the profiler saw {len(spans)} launches of "
-                         f"{pattern}, expected {reps}")
-    return sum(spans) / 1e3 / reps
+                         f"{pattern} in {reps} calls")
+    return sum(spans) / 1e3 / len(spans)
 
 
 def scan_costs(dpg: int, l: int):
