@@ -60,7 +60,9 @@ Phases, in order; any failure exits non-zero:
      plain sequential scan; K3's time per stage beside its bound and the
      plain version's;
  12. K4 against its plain version at the same shapes, float32 and bfloat16
-     inputs; its time per stage;
+     inputs; two K4 launches on the same stage-0 inputs must give the same
+     bits; its time per stage, and in the log the doubling design's times
+     (K4_EARLIER_MS, constants this run does not measure);
  13. the serving path under hillis: ``cli.evaluate`` with exactly 20 K3
      launches per batch and no other scan kernel; one batch's logits
      against the same weights on the default (ssd) path;
@@ -76,7 +78,10 @@ Phases, in order; any failure exits non-zero:
      probe's size; its time per call, el-op rate and bounds, failing any
      mode that runs above its issue bound;
  18. P2 (``tools/probe_mosaic.py``, the 14 relayout probes) against their
-     plain versions, exactly; kernel, library and plain times;
+     plain versions, exactly; kernel, library and plain times per call
+     queued back to back, the kernel's and the library call's device time
+     from the profiler, and an empty kernel launched through the same
+     ctypes path (the floor of a launch);
  19. the class-folder tree: ``cli.evaluate`` on a tree of 224^2 PNGs (no
      PIL on the card's machine) with a random medmamba_t ``.pth``, 20 K1
      launches for its one batch, the probabilities against the model's on
@@ -173,12 +178,19 @@ K2_EARLIER_MS = (8.9309, 4.5878, 2.4794, 1.2762)
 # second exponential, the shuffle trees); the bound counts only the need.
 K2_OPS_DNT, K2_OPS_DT, K2_EXPS_DNT = 19, 11, 1
 # K3 and K4 compute what K1 and K2 compute, so their bounds count the same
-# need. The doubling costs more: per (b, d, n, t) and level, one
+# need. K3's doubling costs more: per (b, d, n, t) and level, one
 # multiply-add and one multiply (3 operations), over log2(128) = 7 levels.
 # K3 does the decay and input (3), 7 levels (21) and y's multiply-add (2):
-# 26 per (b, d, n, t). K4 does the adjoint's 19 plus two doublings (42): 61.
+# 26 per (b, d, n, t). K4 runs K2's sequential adjoint, which needs no
+# doubling, after walking each chunk's first 64 steps to its second tile's
+# entry state.
 HILLIS_CHUNK = 128
-DOUBLING_OPS_K3, DOUBLING_OPS_K4 = 26, 61
+DOUBLING_OPS_K3 = 26
+# K4 ms per launch at each stage in its doubling design (one thread per step
+# of a 128-step chunk, two Kogge-Stone doublings, dB/dC/dA by float atomics;
+# commit 6ede5d4 and before), as PERF.md records it on an NVIDIA H100 80GB
+# HBM3 at 700 W; printed beside this run's times
+K4_EARLIER_MS = (7.5073, 4.1517, 2.4880, 2.5834)
 
 
 def log(msg: str) -> None:
@@ -775,26 +787,22 @@ def k3_costs(dpg: int, l: int) -> dict:
 
 
 def k4_costs(dpg: int, l: int) -> dict:
-    """As ``k3_costs`` for one float32 K4 launch: K2's bytes and need with
-    128-step chunk states; ``doubling_ms`` at DOUBLING_OPS_K4 per
-    (b, d, n, t)."""
-    d = GROUPS * dpg
+    """Least times in ms of one float32 K4 launch: K2's bytes and need with
+    128-step chunk states."""
     bytes_ms, ops_ms, exp_ms = k2_costs(dpg, l, HILLIS_CHUNK)
-    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms,
-                doubling_ms=(DOUBLING_OPS_K4 * BATCH * d * N_STATE * l
-                             + K2_OPS_DT * BATCH * d * l)
-                / PEAK_FP32_OPS_PER_S * 1e3, exp_ms=exp_ms)
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms, exp_ms=exp_ms)
 
 
 def stage_row(si, dpg, l, blocks, k_ms, p_ms, costs) -> dict:
     row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks, ms=k_ms,
                plain_ms=p_ms, **costs)
     row["bound_ms"] = max(costs["bytes_ms"], costs["ops_ms"])
+    doubling = (f"done by the doubling {costs['doubling_ms']:.4f}, "
+                if "doubling_ms" in costs else "")
     log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.2f} ms, bound {row['bound_ms']:.4f} ms (bytes "
         f"{costs['bytes_ms']:.4f}, fp32 ops needed {costs['ops_ms']:.4f}, "
-        f"done by the doubling {costs['doubling_ms']:.4f}, exp units "
-        f"{costs['exp_ms']:.4f}), x{2 * blocks}")
+        f"{doubling}exp units {costs['exp_ms']:.4f}), x{2 * blocks}")
     return row
 
 
@@ -876,8 +884,9 @@ def phase_hillis_fwd_vs_plain():
 
 def phase_hillis_bwd_vs_plain():
     """K4 against its plain version at the stage shapes (float32 and
-    bfloat16 inputs, K3's states), each gradient relative to its scale; K4
-    timed per stage."""
+    bfloat16 inputs, K3's states), each gradient relative to its scale; two
+    launches on the same stage-0 inputs give the same bits; K4 timed per
+    stage beside its doubling design's times."""
     import torch
 
     from medmamba_tpu_torch.ops import scan_hillis
@@ -929,12 +938,25 @@ def phase_hillis_bwd_vs_plain():
         set_bytes = costs["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S
         sets = [operands(dpg, l, torch.float32)
                 for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
+        if si == 0:
+            # K4 adds its partial sums in a fixed order, with no atomics
+            first, second = bwd(sets[0]), bwd(sets[0])
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, first, second):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"K4 d{name}: two launches on the same "
+                                     "inputs differ")
+            log(f"  stage 0: two K4 launches give the same bits in d"
+                + ", d".join(names))
+            del first, second
         k_ms = back_to_back_ms(bwd, sets, 20)
         p_ms = back_to_back_ms(
             lambda s: bwd(s, selective_scan_hillis_bwd_ref), sets[:1], 1,
             rounds=1)
         del sets
         stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
+        log(f"  stage {si}: K4's doubling design as timed at 6ede5d4: "
+            f"{K4_EARLIER_MS[si]:.4f} ms")
     return stages, max_err
 
 
@@ -1082,21 +1104,28 @@ def phase_probe_vpu():
 
 
 def phase_probe_mosaic():
-    """P2's 14 probes against their plain versions, exactly; kernel,
-    library and plain times per probe beside the bytes bound."""
+    """P2's 14 probes against their plain versions, exactly; per probe the
+    kernel's, library call's and plain version's ms per call queued back to
+    back and the kernel's and library call's device time, beside the bytes
+    bound; an empty kernel through the same ctypes path."""
     from medmamba_tpu_torch.tools import probe_mosaic
 
     reset_counts()
     rows = probe_mosaic.run()
     counts = read_counts()
+    floor = probe_mosaic.launch_floor()
     for r in rows:
-        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, library "
+        log(f"  {r['name']}: per call kernel {r['ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms (max|err| "
-            f"{r['library_max_abs_err']:.1e}), plain {r['plain_ms']:.4f} ms, "
-            f"bound {r['bound_ms']:.6f} ms (bytes)")
+            f"{r['library_max_abs_err']:.1e}), plain {r['plain_ms']:.4f} ms; "
+            f"device kernel {r['device_ms']:.5f} ms, library "
+            f"{r['library_device_ms']:.5f} ms; bound {r['bound_ms']:.6f} ms "
+            "(bytes)")
+    log(f"  an empty kernel through the same ctypes path: {floor['ms']:.4f} "
+        f"ms per call, device {floor['device_ms']:.5f} ms")
     if counts != expected_counts(P2=counts["P2"]) or not counts["P2"]:
         raise SystemExit(f"phase 18 launched {counts}")
-    return rows, counts["P2"]
+    return rows, counts["P2"], floor
 
 
 def write_image_tree(root: str) -> str:
@@ -1410,7 +1439,8 @@ def phase_demo(tree: str, pth: str):
 def sum_rows(rows: list) -> dict:
     """Probe rows summed: one call of each case or probe."""
     out = {k: sum(r[k] for r in rows)
-           for k in ("ms", "plain_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "bound_ms", "device_ms",
+                     "library_device_ms") if k in rows[0]}
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     out["bound_by"] = ("operations" if by_ops > out["bound_ms"] / 2
                        else "bytes")
@@ -1520,7 +1550,7 @@ FAMILY = {"K1": "selective_scan_fwd (K1)", "K2": "selective_scan_bwd (K2)",
           "K4": "selective_scan_hillis_bwd (K4)", "K5": "rotate_flip (K5)"}
 FAMILIES = (
     (FAMILY["K3"], r"hillis_fwd_kernel"),
-    (FAMILY["K4"], r"hillis_bwd_kernel"),
+    (FAMILY["K4"], r"hillis_bwd_(states_|reduce_)?kernel"),
     (FAMILY["K1"], r"scan_fwd_kernel"),
     (FAMILY["K2"], r"scan_bwd_(reduce_)?kernel"),
     (FAMILY["K5"], r"rotate_flip_kernel"),
@@ -1729,11 +1759,13 @@ def main() -> int:
     log("phase 12: K4 (hillis backward) against its plain version")
     k4_stages, k4_err = phase_hillis_bwd_vs_plain()
     k4 = per_pass(k4_stages)
+    k4_earlier = sum(K4_EARLIER_MS[s["stage"]] * s["launches"]
+                     for s in k4_stages)
     log(f"  K4 per step ({LAUNCHES_PER_FORWARD} launches): "
-        f"{k4['ms']:.4f} ms; bound {k4['bound_ms']:.4f} ms (bytes "
-        f"{k4['bytes_ms']:.4f}, fp32 ops needed {k4['ops_ms']:.4f}, done by "
-        f"the doubling {k4['doubling_ms']:.4f}); exp units "
-        f"{k4['exp_ms']:.4f} ms; plain {k4['plain_ms']:.1f} ms")
+        f"{k4['ms']:.4f} ms (doubling design as timed at 6ede5d4: "
+        f"{k4_earlier:.4f} ms); bound {k4['bound_ms']:.4f} ms (bytes "
+        f"{k4['bytes_ms']:.4f}, fp32 ops needed {k4['ops_ms']:.4f}); exp "
+        f"units {k4['exp_ms']:.4f} ms; plain {k4['plain_ms']:.1f} ms")
 
     log("phase 13: serving path under MEDMAMBA_SCAN_KERNEL=hillis "
         "(cli.evaluate, medmamba_t 224^2 batch 64)")
@@ -1772,7 +1804,7 @@ def main() -> int:
     log("p1 " + json.dumps(p1_rows))
 
     log("phase 18: P2 (relayout probes) against their plain versions")
-    p2_rows, p2_launches = phase_probe_mosaic()
+    p2_rows, p2_launches, p2_floor = phase_probe_mosaic()
     p2 = sum_rows(p2_rows)
     log("p2 " + json.dumps(p2_rows))
 
@@ -1844,7 +1876,8 @@ def main() -> int:
         "max_abs_err": k4_err,
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
-        "library_ms": None, "doubling_ops_ms": k4["doubling_ms"],
+        "library_ms": None,
+        "earlier_design_ms": k4_earlier,
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
         "model_grad_rel_err": hillis_grad_err}, {
         "name": "probe_vpu", "route": "cuda",
@@ -1862,7 +1895,11 @@ def main() -> int:
         "max_abs_err": p2["max_abs_err"],
         "ms": p2["ms"], "plain_ms": p2["plain_ms"],
         "bound_ms": p2["bound_ms"], "bound_by": p2["bound_by"],
-        "library_ms": p2["library_ms"], "cases": len(p2_rows)}],
+        "library_ms": p2["library_ms"], "cases": len(p2_rows),
+        "device_ms": p2["device_ms"],
+        "library_device_ms": p2["library_device_ms"],
+        "ctypes_floor_ms": p2_floor["ms"],
+        "ctypes_floor_device_ms": p2_floor["device_ms"]}],
         "gradcam": {"s_per_image_after_first": {
             k: cams[k]["s_per_image"] for k in ("default", "upstream")},
             "cam_err_vs_plain_scan": max(cams["default"]["cam_err"],

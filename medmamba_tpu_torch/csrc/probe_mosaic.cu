@@ -5,8 +5,8 @@
 // pl.pallas_call at :22, its bodies at :43-143. On the TPU they asked which
 // small-tensor relayouts the Mosaic compiler accepts; here each computes the
 // same function, so the probe ids below follow the TPU tool's order. With x
-// (B, D, N, R) row-major (the (B, D, N*R) input has the same flat layout)
-// and bdn = (b * D + d) * N + n:
+// (B, D, N, R) = (8, 16, 16, 8) row-major (the (B, D, N*R) input has the
+// same flat layout) and bdn = (b * D + d) * N + n:
 //
 //   0 merge, 1 split, 3 and 4 the leading collapses: out[i] = x[i]
 //   2 swapaxes (B, D, R, N):       out[bd, r, n]   = x[bd, n, r]
@@ -25,121 +25,167 @@
 //  13 sequential recurrence (R, B, D, N): h_0 = x[bdn, 0],
 //                                  h_r = 0.5 h_(r-1) + x[bdn, r]
 //
-// Three kernels: one gather (the index maps 0-4, 6-10 and 12), one product
-// with the selection matrix built in its own loop (5, 11; each output sums
-// one x and R - 1 exact zeros, so it equals x exactly), one thread per bdn
-// for the recurrence (0.5 h is exact). Every product and sum rounds once
-// and none is fused, so each output equals the plain PyTorch version's bit
-// for bit. At the probe's size (64 KiB in) each is bound by its launch.
+// One kernel per probe, its shapes fixed at compile time (divisions are
+// shifts, and no switch runs on the card), in one of three layouts, by the
+// index map: where 4 adjacent outputs read 4 adjacent or nearby inputs (0-5,
+// 8, 9, 11), a thread writes them with one 16-byte store; where the outputs
+// are x's rows turned into planes (10, 12, 13), a thread reads its row of R
+// with two 16-byte loads and writes one value to each plane, adjacent
+// threads on adjacent addresses; the strided slices (6, 7) take one output a
+// thread. The selection products 5 and 11 add one x and R - 1 exact zeros,
+// so each output is that x, and the kernel copies it. 0.5 h is exact, and
+// the recurrence rounds its sum once, unfused, as the plain version does. So
+// each output equals the plain PyTorch version's bit for bit. At the probe's
+// size (64 KiB in) each kernel is bound by its launch and its loads'
+// latency, so the last two layouts keep a thread per row or output: with 4
+// outputs a thread their grids were a quarter as large and slower.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
+constexpr int kB = 8, kD = 16, kN = 16, kR = 8;
+constexpr int kBD = kB * kD;
+constexpr int kBDN = kBD * kN;         // 2048
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-gather_kernel(int probe, const float* __restrict__ x, float* __restrict__ out,
-              int total, int nb, int nd, int nn, int nr) {
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= total) return;
-  int src = o;
-  float scale = 1.f;
-  switch (probe) {
-    case 2: {
-      const int n = o % nn, r = (o / nn) % nr, bd = o / (nn * nr);
-      src = (bd * nn + n) * nr + r;
-      break;
-    }
-    case 6:
-      src = o * nr + nr - 1;
-      break;
-    case 7:
-      src = o * nr;
-      break;
-    case 8: {
-      const int j = o % (nn * nr), bd = o / (nn * nr);
-      src = (bd * nn + j % nn) * nr;
-      break;
-    }
-    case 9: {
-      const int j = o % (nn * nr), bd = o / (nn * nr);
-      src = (bd * nn + j / nr) * nr;
-      break;
-    }
-    case 10:
-    case 12: {
-      const int bdn_total = nb * nd * nn;
-      const int r = o / bdn_total, bdn = o % bdn_total;
-      src = bdn * nr + r;
-      if (probe == 12) scale = (float)(r + 1);
-      break;
-    }
-    default:  // 0, 1, 3, 4: the same flat order
-      break;
-  }
-  out[o] = probe == 12 ? __fmul_rn(x[src], scale) : x[src];
+// outputs of probe P
+__host__ __device__ constexpr int out_size(int probe) {
+  return probe == 5 ? kBDN * kN * kR
+       : probe == 11 ? kBDN * 16 * kR
+       : probe == 6 || probe == 7 ? kBDN
+       : kBDN * kR;
 }
 
-__global__ void __launch_bounds__(kThreads)
-select_product_kernel(int probe, const float* __restrict__ x,
-                      float* __restrict__ out, int rows, int cols, int nr) {
-  const int o = blockIdx.x * kThreads + threadIdx.x;
-  if (o >= rows * cols) return;
-  const int row = o / cols, j = o % cols;
-  const float* xr = x + (size_t)row * nr;
-  float acc = 0.f;
-  for (int r = 0; r < nr; ++r) {
-    const bool on = probe == 5 ? j % nr == r : r == j / 16;
-    acc = __fadd_rn(acc, __fmul_rn(xr[r], on ? 1.f : 0.f));
+// output o of probe P (0-9, 11): its value
+template <int P>
+__device__ __forceinline__ float probe_value(const float* __restrict__ x,
+                                             int o) {
+  if constexpr (P == 2) {
+    const int n = o % kN, r = o / kN % kR, bd = o / (kN * kR);
+    return x[(bd * kN + n) * kR + r];
+  } else if constexpr (P == 6) {
+    return x[o * kR + kR - 1];
+  } else if constexpr (P == 7) {
+    return x[o * kR];
+  } else if constexpr (P == 8) {
+    const int j = o % (kN * kR), bd = o / (kN * kR);
+    return x[(bd * kN + j % kN) * kR];
+  } else if constexpr (P == 9) {
+    const int j = o % (kN * kR), bd = o / (kN * kR);
+    return x[(bd * kN + j / kR) * kR];
+  } else {                               // 11: the selected x
+    return x[o / (16 * kR) * kR + o % (16 * kR) / 16];
   }
-  out[o] = acc;
 }
 
+// 4 adjacent outputs a thread, one 16-byte store (0-5, 8, 9, 11)
+template <int P>
 __global__ void __launch_bounds__(kThreads)
-recurrence_kernel(const float* __restrict__ x, float* __restrict__ out,
-                  int bdn_total, int nr) {
+probe_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  const int o = 4 * (blockIdx.x * kThreads + threadIdx.x);
+  if (o >= out_size(P)) return;
+  float4 v;
+  if constexpr (P == 0 || P == 1 || P == 3 || P == 4 || P == 5) {
+    // x read 16 bytes at a time: for 5, outputs 4k..4k+3 of a row select
+    // x[bdn, 0..3] or x[bdn, 4..7]
+    v = reinterpret_cast<const float4*>(x)[
+        (P == 5 ? o / (kN * kR) * kR + o % kR : o) / 4];
+  } else {
+    v = make_float4(probe_value<P>(x, o), probe_value<P>(x, o + 1),
+                    probe_value<P>(x, o + 2), probe_value<P>(x, o + 3));
+  }
+  reinterpret_cast<float4*>(out)[o / 4] = v;
+}
+
+// one output a thread (the strided slices 6, 7)
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+slice_kernel(const float* __restrict__ x, float* __restrict__ out) {
+  const int o = blockIdx.x * kThreads + threadIdx.x;
+  if (o < kBDN) out[o] = probe_value<P>(x, o);
+}
+
+// one row x[bdn, 0:R] a thread, turned into the planes out[r, bdn]: 10 as
+// it is, 12 scaled by r + 1, 13 the recurrence along r
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+planes_kernel(const float* __restrict__ x, float* __restrict__ out) {
   const int bdn = blockIdx.x * kThreads + threadIdx.x;
-  if (bdn >= bdn_total) return;
-  const float* xr = x + (size_t)bdn * nr;
-  float h = xr[0];
-  out[bdn] = h;
-  for (int r = 1; r < nr; ++r) {
-    h = __fadd_rn(__fmul_rn(h, 0.5f), xr[r]);
-    out[(size_t)r * bdn_total + bdn] = h;
+  if (bdn >= kBDN) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + bdn * kR);
+  const float4 lo = xr[0], hi = xr[1];
+  const float row[kR] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  float h = row[0];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    float v = row[r];
+    if constexpr (P == 12) {
+      v = __fmul_rn(v, (float)(r + 1));
+    } else if constexpr (P == 13) {
+      if (r > 0) h = __fadd_rn(__fmul_rn(h, 0.5f), v);
+      v = h;
+    }
+    out[r * kBDN + bdn] = v;
   }
 }
 
-unsigned blocks_for(int n) { return (unsigned)((n + kThreads - 1) / kThreads); }
+constexpr unsigned blocks_for(int threads) {
+  return (unsigned)((threads + kThreads - 1) / kThreads);
+}
+
+template <int P>
+void launch(const float* x, float* out, cudaStream_t st) {
+  if constexpr (P == 6 || P == 7) {
+    slice_kernel<P><<<blocks_for(kBDN), kThreads, 0, st>>>(x, out);
+  } else if constexpr (P == 10 || P == 12 || P == 13) {
+    planes_kernel<P><<<blocks_for(kBDN), kThreads, 0, st>>>(x, out);
+  } else {
+    probe_kernel<P><<<blocks_for(out_size(P) / 4), kThreads, 0, st>>>(x,
+                                                                      out);
+  }
+}
 
 }  // namespace
 
-// Probe `probe` (0-13, as above) of x with dims (nb, nd, nn, nr) into out,
-// which holds the probe's output. Returns cudaGetLastError() after the
-// launch (0 when it was accepted), or cudaErrorInvalidValue for arguments
-// the kernels do not take. Launches on `stream` and does not synchronise.
+// Probe `probe` (0-13, as above) of x, (8, 16, 16, 8) or (8, 16, 128)
+// float32 and 16-byte aligned, into out, which holds the probe's output.
+// Returns cudaGetLastError() after the launch (0 when it was accepted), or
+// cudaErrorInvalidValue for a probe id outside 0-13. Launches on `stream`
+// and does not synchronise.
 extern "C" int medmamba_probe_mosaic(int probe, const void* x, void* out,
-                                     int nb, int nd, int nn, int nr,
                                      void* stream) {
-  if (nb < 1 || nd < 1 || nn < 1 || nr < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* in = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-  const int bdn = nb * nd * nn;
-  if (probe == 5 || probe == 11) {
-    const int cols = probe == 5 ? nn * nr : 16 * nr;
-    select_product_kernel<<<blocks_for(bdn * cols), kThreads, 0, st>>>(
-        probe, in, o, bdn, cols, nr);
-  } else if (probe == 13) {
-    recurrence_kernel<<<blocks_for(bdn), kThreads, 0, st>>>(in, o, bdn, nr);
-  } else if (probe >= 0 && probe <= 12) {
-    const int total = probe == 6 || probe == 7 ? bdn : bdn * nr;
-    gather_kernel<<<blocks_for(total), kThreads, 0, st>>>(probe, in, o, total,
-                                                         nb, nd, nn, nr);
-  } else {
-    return (int)cudaErrorInvalidValue;
+  switch (probe) {
+    case 0: launch<0>(in, o, st); break;
+    case 1: launch<1>(in, o, st); break;
+    case 2: launch<2>(in, o, st); break;
+    case 3: launch<3>(in, o, st); break;
+    case 4: launch<4>(in, o, st); break;
+    case 5: launch<5>(in, o, st); break;
+    case 6: launch<6>(in, o, st); break;
+    case 7: launch<7>(in, o, st); break;
+    case 8: launch<8>(in, o, st); break;
+    case 9: launch<9>(in, o, st); break;
+    case 10: launch<10>(in, o, st); break;
+    case 11: launch<11>(in, o, st); break;
+    case 12: launch<12>(in, o, st); break;
+    case 13: launch<13>(in, o, st); break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel launched through the same path: the floor of a launch
+// through ctypes, which tools/probe_mosaic.py times beside the probes.
+__global__ void empty_kernel() {}
+
+extern "C" int medmamba_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, keyed by a hash of the source and
-the flags, and loaded with ``ctypes``. A build happens on a kernel's first
+shared library with a plain C interface, keyed by a hash of the source, the
+local headers it includes and the flags, and loaded with ``ctypes``. A build happens on a kernel's first
 launch (or when :func:`build` is called), never at import, so the modules
 import on machines without a card or a compiler.
 """
@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from typing import Callable, Dict, List
@@ -36,12 +37,31 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def source_files(source: str) -> List[str]:
+    """``source`` (a file name in ``csrc/``) and the ``csrc/`` headers it
+    includes with ``#include "..."``, directly or through another, in the
+    order they are first reached."""
+    files = [source]
+    for name in files:
+        with open(os.path.join(CSRC, name)) as f:
+            for inc in _LOCAL_INCLUDE.findall(f.read()):
+                if inc not in files:
+                    files.append(inc)
+    return files
+
+
 def library_path(source: str) -> str:
     """Where the library built from ``source`` (a file name in ``csrc/``)
     lives; the compiler's resource report (``-Xptxas -v``) sits beside it
-    as ``<name>.log``."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    as ``<name>.log``. The name changes with the source, any local header
+    it includes and the flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in source_files(source):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            key.update(name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{key.hexdigest()[:16]}.so")
 

@@ -4,9 +4,12 @@ Counterparts of ``medmamba_tpu/ops/pallas_scan.py``'s ``_fwd_kernel`` and
 ``_bwd_kernel``, the scan that ``MEDMAMBA_SCAN_KERNEL=hillis`` selects. The
 kernels are ``csrc/selective_scan_hillis_fwd.cu`` and
 ``csrc/selective_scan_hillis_bwd.cu``, built and loaded by
-``ops/cuda_build.py`` on first launch. Both scan left to right only, in
-``CHUNK``-step chunks; ``ops.selective_scan`` flips reverse groups and tiles
-a shared u around them, as the JAX package's wrapper does.
+``ops/cuda_build.py`` on first launch. Both scan left to right only;
+``ops.selective_scan`` flips reverse groups and tiles a shared u around
+them, as the JAX package's wrapper does. K3 saves the state entering each
+``CHUNK``-step chunk; K4 expands them to the states entering each of K2's
+``scan_cuda.TILE``-step tiles and runs K2's sequential adjoint
+(``csrc/scan_bwd_walk.cuh``) from there: three kernels a launch.
 
 ``HILLIS_LAUNCHES`` counts K3 launches made through
 :func:`selective_scan_hillis_fwd` and ``HILLIS_BWD_LAUNCHES`` K4 launches
@@ -39,9 +42,12 @@ def _declare_fwd(lib: ctypes.CDLL) -> None:
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_hillis_bwd
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    ws = lib.medmamba_selective_scan_hillis_bwd_workspace
+    ws.argtypes = [ctypes.c_int] * 4
+    ws.restype = ctypes.c_longlong
 
 
 def n_chunks(l: int) -> int:
@@ -106,6 +112,7 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
     ddelta, dA, dB, dC, dD, dbias)`` in the dtypes of their primals; dD and
     dbias are None where D and delta_bias are. At positions >= ``valid_len``
     gy counts as 0 and du and ddelta are 0, as the TPU kernel masks them.
+    Every output is the same bits on every launch: no atomics.
     """
     global HILLIS_BWD_LAUNCHES
     # the operands of K1 with one u group per scan group
@@ -119,12 +126,17 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
     du = torch.empty_like(u)
     ddelta = torch.empty_like(delta)
     f32 = dict(dtype=torch.float32, device=device)
-    dA = torch.zeros((d, N_STATE), **f32)
-    dB = torch.zeros((b, g, N_STATE, l), **f32)
-    dC = torch.zeros((b, g, N_STATE, l), **f32)
-    dD = torch.zeros((d,), **f32) if D is not None else None
-    dbias = torch.zeros((d,), **f32) if delta_bias is not None else None
+    dA = torch.empty((d, N_STATE), **f32)
+    dB = torch.empty((b, g, N_STATE, l), **f32)
+    dC = torch.empty((b, g, N_STATE, l), **f32)
+    dD = torch.empty((d,), **f32) if D is not None else None
+    dbias = torch.empty((d,), **f32) if delta_bias is not None else None
     lib = cuda_build.load(BWD_SOURCE, _declare_bwd)
+    # the 64-step tile-entry states the walk starts from, and its partial
+    # sums, which its last kernel adds in a fixed order
+    ws = torch.empty(
+        (lib.medmamba_selective_scan_hillis_bwd_workspace(b, g, dpg, l),),
+        **f32)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.medmamba_selective_scan_hillis_bwd(
@@ -132,8 +144,8 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
             C.data_ptr(), scan_cuda._ptr(D), scan_cuda._ptr(delta_bias),
             states.data_ptr(), gy.data_ptr(), du.data_ptr(),
             ddelta.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-            scan_cuda._ptr(dD), scan_cuda._ptr(dbias), b, g, dpg, N_STATE, l,
-            valid_len, int(bool(delta_softplus)),
+            scan_cuda._ptr(dD), scan_cuda._ptr(dbias), ws.data_ptr(), b, g,
+            dpg, N_STATE, l, valid_len, int(bool(delta_softplus)),
             scan_cuda._DTYPE_CODE[u.dtype], stream)
     cuda_build.check_launch(lib, rc, "hillis selective-scan backward")
     HILLIS_BWD_LAUNCHES += 1

@@ -16,7 +16,9 @@ On the card:
     python -m medmamba_tpu_torch.tools.probe_mosaic
 
 ``probe_mosaic`` launches the kernel on a CUDA tensor and runs the plain
-version on a CPU tensor. ``LAUNCHES`` counts kernel launches.
+version on a CPU tensor. ``LAUNCHES`` counts kernel launches. ``run``
+times each probe per call queued back to back, and by the profiler's device
+time; ``launch_floor`` times an empty kernel through the same ctypes path.
 """
 from __future__ import annotations
 
@@ -164,11 +166,36 @@ PROBES = (
 )
 
 
+_SHAPES = {"x4": (B, D, N, R), "xw": (B, D, N * R)}
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    fn = lib.medmamba_probe_mosaic
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p] \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn, n_args in ((lib.medmamba_probe_mosaic, 4),
+                       (lib.medmamba_empty_launch, 1)):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p][-n_args:]
+        fn.restype = ctypes.c_int
+
+
+def _launch(entry, x: torch.Tensor, *args) -> None:
+    """Call the C entry ``entry`` with ``args`` and the current stream of
+    x's card, which it launches on; raise if the launch was refused.
+
+    At 64 KiB a probe the host's cost of a call is its time, so this path is
+    lean: the stream is read through torch's C binding (the handle that
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object), and the device context is entered only when x lies on
+    another card than the current one. The launch's return code is checked
+    on every call."""
+    dev = x.get_device()
+    if dev == torch.cuda.current_device():
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = entry(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(cuda_build.load(SOURCE, _declare), rc,
+                                "probe_mosaic")
 
 
 def probe_mosaic_cuda(probe: int, x: torch.Tensor) -> torch.Tensor:
@@ -176,21 +203,24 @@ def probe_mosaic_cuda(probe: int, x: torch.Tensor) -> torch.Tensor:
     operand; raises on anything the kernel does not take."""
     global LAUNCHES
     p = PROBES[probe]
-    want = (B, D, N, R) if p.operand == "x4" else (B, D, N * R)
-    if x.device.type != "cuda" or x.dtype != torch.float32 \
-            or tuple(x.shape) != want or not x.is_contiguous():
+    want = _SHAPES[p.operand]
+    if x.shape != want or x.dtype != torch.float32 or not x.is_cuda \
+            or not x.is_contiguous():
         raise ValueError(f"probe {probe} takes a contiguous float32 CUDA "
                          f"tensor of shape {want}, got {x.dtype} "
                          f"{tuple(x.shape)} on {x.device}")
-    out = torch.empty(p.out_shape, dtype=torch.float32, device=x.device)
+    out = x.new_empty(p.out_shape)
     lib = cuda_build.load(SOURCE, _declare)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.medmamba_probe_mosaic(probe, x.data_ptr(), out.data_ptr(),
-                                       B, D, N, R, stream)
-    cuda_build.check_launch(lib, rc, "probe_mosaic")
+    _launch(lib.medmamba_probe_mosaic, x, probe, x.data_ptr(),
+            out.data_ptr())
     LAUNCHES += 1
     return out
+
+
+def empty_launch(x: torch.Tensor) -> None:
+    """An empty kernel launched through the same path as a probe, on x's
+    card: the floor of a launch through ctypes. Not counted in LAUNCHES."""
+    _launch(cuda_build.load(SOURCE, _declare).medmamba_empty_launch, x)
 
 
 def probe_mosaic(probe: int, x: torch.Tensor) -> torch.Tensor:
@@ -224,11 +254,49 @@ def _ms_per_call(fn, x, reps: int = 200, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
+def _device_ms_per_call(fn, x, reps: int = 50) -> float:
+    """The profiler's device time per call of ``fn`` over ``reps`` calls:
+    for each kernel or copy it ran on the card, its mean time times its
+    launches a call, summed. The tracer can drop events in a process that
+    has traced much before, so a launch's count a call is its events over
+    ``reps``, rounded, and at least 1; a first session, discarded, starts
+    the tracer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for n in (2, reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn(x)
+            torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+    seen = sum(map(len, by_name.values()))
+    if 2 * seen < reps:
+        raise RuntimeError(f"the profiler saw {seen} device launches in "
+                           f"{reps} calls")
+    return sum(sum(t) / len(t) * max(1, round(len(t) / reps))
+               for t in by_name.values()) / 1e3
+
+
+def launch_floor() -> dict:
+    """An empty kernel through the probes' ctypes path: its ms per call
+    queued back to back (the host's cost of a launch through ctypes) and
+    its device time."""
+    x = inputs("cuda")["x4"]
+    return dict(ms=_ms_per_call(empty_launch, x),
+                device_ms=_device_ms_per_call(empty_launch, x))
+
+
 def run() -> list:
     """Each probe on the card against its plain version (raises on the
-    first value that differs), then the kernel's, the library call's and
-    the plain version's ms per call, queued back to back. Returns one dict
-    per probe."""
+    first value that differs), then per call the kernel's, the library
+    call's and the plain version's ms queued back to back (``ms``,
+    ``library_ms``, ``plain_ms``: at this size, the host's cost of a call)
+    and the kernel's and library call's device time from the profiler
+    (``device_ms``, ``library_device_ms``). Returns one dict per probe."""
     xs = inputs("cuda")
     rows = []
     for i, p in enumerate(PROBES):
@@ -242,13 +310,18 @@ def run() -> list:
                 else got.numel()
             raise RuntimeError(f"{p.name}: FAIL, {n_diff} values differ from "
                                f"the plain version")
+
+        def kernel(t, i=i):
+            return probe_mosaic_cuda(i, t)
         rows.append(dict(
             probe=i, name=p.name, max_abs_err=0.0,
             library_max_abs_err=(lib_out - want).abs().max().item(),
             bound_ms=bytes_ms(i), bound_by="bytes",
-            ms=_ms_per_call(lambda t: probe_mosaic_cuda(i, t), x),
+            ms=_ms_per_call(kernel, x),
             library_ms=_ms_per_call(p.library, x),
-            plain_ms=_ms_per_call(p.plain, x)))
+            plain_ms=_ms_per_call(p.plain, x),
+            device_ms=_device_ms_per_call(kernel, x),
+            library_device_ms=_device_ms_per_call(p.library, x)))
         print(f"{p.name}: OK", flush=True)
     return rows
 
@@ -257,13 +330,18 @@ def main(argv=None) -> int:
     del argv
     try:
         rows = run()
+        floor = launch_floor()
     except RuntimeError as e:
         print(e, flush=True)
         return 1
     for r in rows:
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.6f} ms (bytes)")
+        print(f"  {r['name']}: per call kernel {r['ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms; "
+              f"device kernel {r['device_ms']:.5f} ms, library "
+              f"{r['library_device_ms']:.5f} ms; bound {r['bound_ms']:.6f} "
+              "ms (bytes)")
+    print(f"  empty kernel through ctypes: {floor['ms']:.4f} ms per call, "
+          f"device {floor['device_ms']:.5f} ms")
     return 0
 
 

@@ -401,6 +401,69 @@ def test_hillis_kernels_match_plain_versions(cuda, case):
         _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
 
 
+# K4's edges: lengths around its 64-step tiles and K3's 128-step chunks (1,
+# 49 and 64 one tile, 127 and 128 one chunk of two tiles, 129 a third tile in
+# a second chunk, 150 and 196 a short last tile), valid_len below L in the
+# first and in the last chunk, channel counts its 32-channel blocks do not
+# divide, and D and delta_bias None
+HILLIS_BWD_EDGES = {
+    "l1": dict(l=1), "l49": dict(l=49), "l64": dict(l=64),
+    "l127": dict(l=127), "l128": dict(l=128), "l129": dict(l=129),
+    "l150": dict(l=150), "l196": dict(l=196),
+    "valid_len_first_chunk": dict(l=196, valid_len=100),
+    "valid_len_last_chunk": dict(l=196, valid_len=150),
+    "dpg40": dict(dpg=40, l=150), "dpg13_l49": dict(dpg=13, l=49),
+    "no_skip_no_bias": dict(l=129, skip=False),
+}
+
+
+def _hillis_bwd_operands(cuda, case):
+    kw = dict(case)
+    skip = kw.pop("skip", True)
+    valid_len = kw.pop("valid_len", None)
+    x = _inputs(cuda, b=2, **kw)
+    if not skip:
+        x["D"] = x["delta_bias"] = None
+    args = [x[k] for k in NAMES]
+    y, states, _ = scan_hillis.selective_scan_hillis_fwd(
+        *args, delta_softplus=True, valid_len=valid_len)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    gy = torch.randn(y.shape, generator=gen, device=cuda)
+    return args, states, gy, dict(delta_softplus=True, valid_len=valid_len)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(HILLIS_BWD_EDGES))
+def test_hillis_backward_matches_plain_version_at_edge_shapes(cuda, shape,
+                                                              dtype):
+    """K4 from K3's chunk states against its plain version, each gradient
+    relative to its largest entry."""
+    case = dict(HILLIS_BWD_EDGES[shape], dtype=getattr(torch, dtype))
+    args, states, gy, kw = _hillis_bwd_operands(cuda, case)
+    scan_hillis.HILLIS_BWD_LAUNCHES = 0
+    got = scan_hillis.selective_scan_hillis_bwd(*args, states, gy, **kw)
+    assert scan_hillis.HILLIS_BWD_LAUNCHES == 1
+    want = selective_scan_hillis_bwd_ref(*args, states, gy, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+
+
+def test_hillis_backward_is_deterministic(cuda):
+    """Two launches on the same inputs give the same bits: K4 adds its
+    partial sums in a fixed order and writes no output with an atomic."""
+    args, states, gy, kw = _hillis_bwd_operands(
+        cuda, dict(dpg=40, l=200, valid_len=180))
+    first = scan_hillis.selective_scan_hillis_bwd(*args, states, gy, **kw)
+    second = scan_hillis.selective_scan_hillis_bwd(*args, states, gy, **kw)
+    for name, a, b in zip(NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
 def test_hillis_selector_runs_k3_then_k4(cuda, monkeypatch):
     """Under MEDMAMBA_SCAN_KERNEL=hillis the dispatcher reaches K3 and K4
     and never K1/K2; y is float32 whatever out_dtype asks; the gradients
@@ -435,6 +498,16 @@ def test_hillis_launchers_raise_on_bad_operands(cuda):
     with pytest.raises(ValueError, match="states"):
         scan_hillis.selective_scan_hillis_bwd(
             *args, states[:, :, :1].contiguous(), y, delta_softplus=True)
+    with pytest.raises(ValueError, match="states"):
+        scan_hillis.selective_scan_hillis_bwd(
+            *args, states.double(), y, delta_softplus=True)
+    with pytest.raises(ValueError, match="gy"):
+        scan_hillis.selective_scan_hillis_bwd(
+            *args, states, y.cpu(), delta_softplus=True)
+    with pytest.raises(ValueError, match="B"):
+        scan_hillis.selective_scan_hillis_bwd(
+            *(dict(x, B=x["B"].to(torch.bfloat16))[k] for k in NAMES),
+            states, y, delta_softplus=True)
     bad = dict(x, A=x["A"][:, :8].contiguous())
     with pytest.raises(ValueError, match="A"):
         scan_hillis.selective_scan_hillis_fwd(
@@ -479,6 +552,24 @@ def test_probe_mosaic_kernels_equal_plain_versions(cuda):
         torch.testing.assert_close(got, p.plain(xs[p.operand]), rtol=0,
                                    atol=0)
     assert probe_mosaic.LAUNCHES == len(probe_mosaic.PROBES)
+
+
+def test_probe_mosaic_launcher_raises_on_bad_operands(cuda):
+    """The launcher refuses a wrong shape, dtype or device, or a strided
+    operand, and launches nothing then."""
+    xs = probe_mosaic.inputs(cuda)
+    x4 = xs["x4"]
+    probe_mosaic.LAUNCHES = 0
+    for bad in (xs["xw"], x4.double(), x4.cpu(),
+                x4.transpose(0, 1).contiguous().transpose(0, 1)):
+        with pytest.raises(ValueError, match="probe 0 takes"):
+            probe_mosaic.probe_mosaic_cuda(0, bad)
+    with pytest.raises(ValueError, match="probe 1 takes"):
+        probe_mosaic.probe_mosaic_cuda(1, x4)
+    assert probe_mosaic.LAUNCHES == 0
+    probe_mosaic.empty_launch(x4)
+    torch.cuda.synchronize()
+    assert probe_mosaic.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("scan", ["ssd", "hillis"])

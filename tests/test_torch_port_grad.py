@@ -18,7 +18,7 @@ import torch
 
 from medmamba_tpu.ops.selective_scan import selective_scan as jax_scan
 from medmamba_tpu.ops.selective_scan import selective_scan_seq
-from medmamba_tpu_torch.ops import scan_cuda
+from medmamba_tpu_torch.ops import cuda_build, scan_cuda, scan_hillis
 from medmamba_tpu_torch.ops.selective_scan import (_tile_starts,
                                                    selective_scan,
                                                    selective_scan_bwd_ref,
@@ -157,14 +157,60 @@ def test_states_ref_matches_jax_prefix_scans(case):
                                        rtol=TOL, atol=TOL)
 
 
+def _constants(source: str, name: str) -> list:
+    """The values of ``constexpr int <name>`` in a ``csrc/`` source and the
+    local headers it includes."""
+    text = ""
+    for f in cuda_build.source_files(source):
+        with open(os.path.join(cuda_build.CSRC, f)) as fh:
+            text += fh.read()
+    return re.findall(rf"constexpr int {name} = (\d+);", text)
+
+
 def test_k1_and_k2_share_the_tile():
     """K2 recomputes each tile from the state K1 saved at its entry, so both
     kernels' tile (``kT`` in their sources) is the wrapper's ``TILE``, the
     64 steps whose entry states the test above holds."""
-    csrc = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(scan_cuda.__file__))), "csrc")
     assert scan_cuda.TILE == 64
     for source in (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE):
-        with open(os.path.join(csrc, source)) as f:
-            tiles = re.findall(r"constexpr int kT = (\d+);", f.read())
+        tiles = _constants(source, "kT")
         assert tiles == [str(scan_cuda.TILE)], (source, tiles)
+
+
+def test_k3_and_k4_share_the_chunk_and_k4_walks_k2s_tile():
+    """K4 starts from the state K3 saved at each chunk's entry, so K3's
+    chunk (``kT``) and K4's (``kChunk``) are the wrapper's ``CHUNK``; K4
+    expands them to the entry states of K2's tiles and runs K2's walk, so
+    the walk's tile in K4's build is ``TILE`` and a chunk is two tiles."""
+    assert scan_hillis.CHUNK == 128
+    assert _constants(scan_hillis.FWD_SOURCE, "kT") == [str(scan_hillis.CHUNK)]
+    assert _constants(scan_hillis.BWD_SOURCE, "kChunk") == [
+        str(scan_hillis.CHUNK)]
+    assert _constants(scan_hillis.BWD_SOURCE, "kT") == [str(scan_cuda.TILE)]
+    assert scan_hillis.CHUNK == 2 * scan_cuda.TILE
+    # K2 and K4 build the same walk
+    walk = set(cuda_build.source_files(scan_cuda.BWD_SOURCE)[1:])
+    assert walk and walk <= set(cuda_build.source_files(scan_hillis.BWD_SOURCE))
+
+
+def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
+    """The build key covers the local headers a source includes, directly or
+    through another header, so an edit to a shared header never loads a
+    library built from the old one; other files do not move it."""
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    files = {"k.cu": '#include <cuda_runtime.h>\n#include "walk.cuh"\n',
+             "walk.cuh": '#pragma once\n  #  include "inner.cuh"\n',
+             "inner.cuh": "constexpr int kT = 64;\n",
+             "other.cuh": "constexpr int kT = 32;\n"}
+    for name, text in files.items():
+        (tmp_path / name).write_text(text)
+    assert cuda_build.source_files("k.cu") == ["k.cu", "walk.cuh",
+                                               "inner.cuh"]
+    first = cuda_build.library_path("k.cu")
+    (tmp_path / "other.cuh").write_text("constexpr int kT = 16;\n")
+    assert cuda_build.library_path("k.cu") == first
+    (tmp_path / "inner.cuh").write_text("constexpr int kT = 128;\n")
+    second = cuda_build.library_path("k.cu")
+    assert second != first
+    (tmp_path / "walk.cuh").write_text('#include "inner.cuh"\n')
+    assert cuda_build.library_path("k.cu") not in (first, second)
