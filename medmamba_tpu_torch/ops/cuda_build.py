@@ -2,9 +2,10 @@
 
 Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, keyed by a hash of the source, the
-local headers it includes and the flags, and loaded with ``ctypes``. A build happens on a kernel's first
-launch (or when :func:`build` is called), never at import, so the modules
-import on machines without a card or a compiler.
+local headers it includes and the flags, and loaded with ``ctypes``. A
+build happens on a kernel's first launch (or when :func:`build` is called),
+never at import, so the modules import on machines without a card or a
+compiler.
 """
 from __future__ import annotations
 

@@ -26,6 +26,7 @@ import ctypes
 import functools
 import statistics
 import sys
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -170,11 +171,12 @@ _SHAPES = {"x4": (B, D, N, R), "xw": (B, D, N * R)}
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    for fn, n_args in ((lib.medmamba_probe_mosaic, 4),
-                       (lib.medmamba_empty_launch, 1)):
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p][-n_args:]
-        fn.restype = ctypes.c_int
+    fn = lib.medmamba_probe_mosaic
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    empty = lib.medmamba_empty_launch
+    empty.argtypes = [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
 
 
 def _launch(entry, x: torch.Tensor, *args) -> None:
@@ -254,31 +256,64 @@ def _ms_per_call(fn, x, reps: int = 200, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms_per_call(fn, x, reps: int = 50) -> float:
-    """The profiler's device time per call of ``fn`` over ``reps`` calls:
-    for each kernel or copy it ran on the card, its mean time times its
-    launches a call, summed. The tracer can drop events in a process that
-    has traced much before, so a launch's count a call is its events over
-    ``reps``, rounded, and at least 1; a first session, discarded, starts
-    the tracer."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_ms_per_call(calls: list, reps: int = 50, tries: int = 3,
+                        gap_s: float = 0.01) -> list:
+    """The profiler's device time per call of each ``(fn, x)`` in
+    ``calls``: ``reps`` calls of each in one session, each call's kernels
+    and copies summed as their mean time times their launches a call.
 
-    for n in (2, reps):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn(x)
-            torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(
-                e.time_range.end - e.time_range.start)
-    seen = sum(map(len, by_name.values()))
-    if 2 * seen < reps:
-        raise RuntimeError(f"the profiler saw {seen} device launches in "
-                           f"{reps} calls")
-    return sum(sum(t) / len(t) * max(1, round(len(t) / reps))
-               for t in by_name.values()) / 1e3
+    One session serves every call, since the tracer of a process that has
+    opened many sessions can record none; each call runs inside a
+    ``record_function`` range, then the card is synchronised and idles for
+    ``gap_s``, and a device event belongs to the range its start falls in
+    (widened by half the gap). A launch's count a call is its events over
+    ``reps``, rounded, at least 1, as the tracer can drop events; a session
+    in which some call shows fewer than ``reps / 2`` is run again, up to
+    ``tries`` sessions, then this raises. A short session first starts the
+    tracer."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def session(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k, (fn, x) in enumerate(calls):
+                with record_function(f"probe_mosaic.call{k}"):
+                    for _ in range(n):
+                        fn(x)
+                    torch.cuda.synchronize()
+                time.sleep(gap_s)
+        return prof.events()
+
+    session(2)
+    for _ in range(tries):
+        events = session(reps)
+        spans = {}
+        for e in events:
+            if e.name.startswith("probe_mosaic.call") and \
+                    e.device_type == DeviceType.CPU:
+                spans[int(e.name[len("probe_mosaic.call"):])] = (
+                    e.time_range.start, e.time_range.end)
+        half = gap_s * 1e6 / 2
+        by_call = [{} for _ in calls]
+        for e in events:
+            # the ranges also show on the card's timeline: skip them there
+            if e.device_type != DeviceType.CUDA or \
+                    e.name.startswith("probe_mosaic.call"):
+                continue
+            t = e.time_range.start
+            k = next((k for k, (lo, hi) in spans.items()
+                      if lo - half <= t < hi + half), None)
+            if k is not None:
+                by_call[k].setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        seen = [sum(map(len, names.values())) for names in by_call]
+        if min(seen) * 2 >= reps:
+            return [sum(sum(t) / len(t) * max(1, round(len(t) / reps))
+                        for t in names.values()) / 1e3
+                    for names in by_call]
+    raise RuntimeError(f"the profiler saw {seen} device launches of "
+                       f"{reps} calls each")
 
 
 def launch_floor() -> dict:
@@ -287,7 +322,7 @@ def launch_floor() -> dict:
     its device time."""
     x = inputs("cuda")["x4"]
     return dict(ms=_ms_per_call(empty_launch, x),
-                device_ms=_device_ms_per_call(empty_launch, x))
+                device_ms=_device_ms_per_call([(empty_launch, x)])[0])
 
 
 def run() -> list:
@@ -298,7 +333,7 @@ def run() -> list:
     and the kernel's and library call's device time from the profiler
     (``device_ms``, ``library_device_ms``). Returns one dict per probe."""
     xs = inputs("cuda")
-    rows = []
+    rows, calls = [], []
     for i, p in enumerate(PROBES):
         x = xs[p.operand]
         got = probe_mosaic_cuda(i, x)
@@ -313,16 +348,18 @@ def run() -> list:
 
         def kernel(t, i=i):
             return probe_mosaic_cuda(i, t)
+        calls += [(kernel, x), (p.library, x)]
         rows.append(dict(
             probe=i, name=p.name, max_abs_err=0.0,
             library_max_abs_err=(lib_out - want).abs().max().item(),
             bound_ms=bytes_ms(i), bound_by="bytes",
             ms=_ms_per_call(kernel, x),
             library_ms=_ms_per_call(p.library, x),
-            plain_ms=_ms_per_call(p.plain, x),
-            device_ms=_device_ms_per_call(kernel, x),
-            library_device_ms=_device_ms_per_call(p.library, x)))
+            plain_ms=_ms_per_call(p.plain, x)))
         print(f"{p.name}: OK", flush=True)
+    device = _device_ms_per_call(calls)
+    for r, kernel_ms, library_ms in zip(rows, device[::2], device[1::2]):
+        r.update(device_ms=kernel_ms, library_device_ms=library_ms)
     return rows
 
 
