@@ -71,8 +71,9 @@ Phases, in order; any failure exits non-zero:
  15. model gradients under hillis: one float32 forward through K3, its
      backward through K4 against the same backward through K4's plain
      version, per parameter;
- 16. timing under hillis: the eval forward and the bf16 train step beside
-     the ssd numbers, with their device time by kernel family;
+ 16. timing under hillis: the eval forward and the bf16 and float32 train
+     steps beside the ssd numbers, with the forward's and the bf16 step's
+     device time by kernel family;
  17. P1 (``tools/probe_vpu.py``, the elementwise issue-rate probe) against
      its plain version in every mode, float32 and bfloat16, at the TPU
      probe's size; its time per call, el-op rate and bounds, failing any
@@ -259,27 +260,6 @@ def scan_inputs(dpg: int, l: int, dtype, gen, batch: int = BATCH):
         delta_bias=dt0 + torch.log(-torch.expm1(-dt0)))
 
 
-def kernel_device_ms(fn, inputs: list, pattern: str, reps: int = 20) -> float:
-    """The profiler's device time per launch of the kernels matching
-    ``pattern`` over ``reps`` calls of ``fn`` cycling through ``inputs``:
-    the mean over the launches it recorded. A first session, discarded,
-    starts the tracer (the first one in a process can miss launches)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for warm_up in (True, False):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(2 if warm_up else reps):
-                fn(inputs[i % len(inputs)])
-            torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if re.search(pattern, e.name)]
-    if 2 * len(spans) < reps:
-        raise SystemExit(f"the profiler saw {len(spans)} launches of "
-                         f"{pattern} in {reps} calls")
-    return sum(spans) / 1e3 / len(spans)
-
-
 def scan_costs(dpg: int, l: int):
     """Least times in ms of one float32 launch on the card: (bytes, float32
     operations, exp on the special-function units). Each input is read once
@@ -298,6 +278,7 @@ def phase_kernel_vs_plain():
     import torch
 
     from medmamba_tpu_torch.ops.selective_scan import selective_scan
+    from medmamba_tpu_torch.utils.profiling import device_ms_per_call
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     cases = [("fwd fp32", torch.float32, {}),
@@ -357,7 +338,7 @@ def phase_kernel_vs_plain():
         def fwd1(x):
             return selective_scan(**x, delta_softplus=True)
         b1_ms = back_to_back_ms(fwd1, xs, 20)
-        b1_dev = kernel_device_ms(fwd1, xs, r"scan_fwd_kernel")
+        b1_dev = device_ms_per_call([(fwd1, xs)], r"scan_fwd_kernel")[0]
         stages[si].update(ms_batch1=b1_ms, device_ms_batch1=b1_dev)
         log(f"  stage {si} D={GROUPS * dpg} L={l} batch 1: kernel "
             f"{b1_ms:.4f} ms back to back through the wrapper, device "
@@ -733,10 +714,10 @@ def check_model_grads(label: str, got: dict, want: dict, loss_k: float,
     return rows
 
 
-def phase_train_timing(float32: bool = True):
+def phase_train_timing():
     """Train-step throughput on a resident uint8 batch (bf16 + augmentation,
-    then, with ``float32``, float32 + augmentation) and the bf16 step's
-    device time by kernel family."""
+    then float32 + augmentation) and the bf16 step's device time by kernel
+    family."""
     import torch
 
     from medmamba_tpu_torch.models.registry import create_model
@@ -748,8 +729,8 @@ def phase_train_timing(float32: bool = True):
     labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen,
                            device="cuda")
     out = {}
-    configs = (("bf16+aug", torch.bfloat16), ("fp32+aug", torch.float32))
-    for name, dtype in configs[:2 if float32 else 1]:
+    for name, dtype in (("bf16+aug", torch.bfloat16),
+                        ("fp32+aug", torch.float32)):
         model = create_model("T", NUM_CLASSES, dtype=dtype, device="cuda",
                              generator=torch.Generator().manual_seed(SEED))
         opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
@@ -1785,14 +1766,15 @@ def main() -> int:
     with scan_kernel("hillis"):
         h_fwd_ms, h_img_s, h_prof = phase_timing(model)
         del model
-        h_train, h_train_prof = phase_train_timing(float32=False)
+        h_train, h_train_prof = phase_train_timing()
     h_fam = h_train_prof["family_ms_per_step"]
     log(f"  eval forward, float32 without TF32: hillis {h_fwd_ms:.3f} ms, "
         f"{h_img_s:.1f} img/s; ssd {fwd_ms:.3f} ms, {img_s:.1f} img/s")
-    log(f"  train step bf16+aug: hillis {h_train['bf16+aug']['ms']:.3f} ms, "
-        f"{h_train['bf16+aug']['img_s']:.1f} img/s; ssd "
-        f"{train_timing['bf16+aug']['ms']:.3f} ms, "
-        f"{train_timing['bf16+aug']['img_s']:.1f} img/s")
+    for name in ("bf16+aug", "fp32+aug"):
+        log(f"  train step {name}: hillis {h_train[name]['ms']:.3f} ms, "
+            f"{h_train[name]['img_s']:.1f} img/s; ssd "
+            f"{train_timing[name]['ms']:.3f} ms, "
+            f"{train_timing[name]['img_s']:.1f} img/s")
     log("hillis_profile " + json.dumps(h_prof))
     log("hillis_train_profile " + json.dumps(h_train_prof))
     log("k3_stages " + json.dumps(k3_stages))
@@ -1877,7 +1859,6 @@ def main() -> int:
         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": None,
-        "earlier_design_ms": k4_earlier,
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
         "model_grad_rel_err": hillis_grad_err}, {
         "name": "probe_vpu", "route": "cuda",

@@ -26,13 +26,13 @@ import ctypes
 import functools
 import statistics
 import sys
-import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from medmamba_tpu_torch.ops import cuda_build
+from medmamba_tpu_torch.utils.profiling import device_ms_per_call
 
 SOURCE = "probe_mosaic.cu"
 B, D, N, R = 8, 16, 16, 8
@@ -207,10 +207,12 @@ def probe_mosaic_cuda(probe: int, x: torch.Tensor) -> torch.Tensor:
     p = PROBES[probe]
     want = _SHAPES[p.operand]
     if x.shape != want or x.dtype != torch.float32 or not x.is_cuda \
-            or not x.is_contiguous():
+            or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"probe {probe} takes a contiguous float32 CUDA "
-                         f"tensor of shape {want}, got {x.dtype} "
-                         f"{tuple(x.shape)} on {x.device}")
+                         f"tensor of shape {want} at a 16-byte aligned "
+                         f"address (the kernels read float4s), got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device} at "
+                         f"offset {x.storage_offset()}")
     out = x.new_empty(p.out_shape)
     lib = cuda_build.load(SOURCE, _declare)
     _launch(lib.medmamba_probe_mosaic, x, probe, x.data_ptr(),
@@ -256,73 +258,13 @@ def _ms_per_call(fn, x, reps: int = 200, rounds: int = 3) -> float:
     return statistics.median(times)
 
 
-def _device_ms_per_call(calls: list, reps: int = 50, tries: int = 3,
-                        gap_s: float = 0.01) -> list:
-    """The profiler's device time per call of each ``(fn, x)`` in
-    ``calls``: ``reps`` calls of each in one session, each call's kernels
-    and copies summed as their mean time times their launches a call.
-
-    One session serves every call, since the tracer of a process that has
-    opened many sessions can record none; each call runs inside a
-    ``record_function`` range, then the card is synchronised and idles for
-    ``gap_s``, and a device event belongs to the range its start falls in
-    (widened by half the gap). A launch's count a call is its events over
-    ``reps``, rounded, at least 1, as the tracer can drop events; a session
-    in which some call shows fewer than ``reps / 2`` is run again, up to
-    ``tries`` sessions, then this raises. A short session first starts the
-    tracer."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    def session(n):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for k, (fn, x) in enumerate(calls):
-                with record_function(f"probe_mosaic.call{k}"):
-                    for _ in range(n):
-                        fn(x)
-                    torch.cuda.synchronize()
-                time.sleep(gap_s)
-        return prof.events()
-
-    session(2)
-    for _ in range(tries):
-        events = session(reps)
-        spans = {}
-        for e in events:
-            if e.name.startswith("probe_mosaic.call") and \
-                    e.device_type == DeviceType.CPU:
-                spans[int(e.name[len("probe_mosaic.call"):])] = (
-                    e.time_range.start, e.time_range.end)
-        half = gap_s * 1e6 / 2
-        by_call = [{} for _ in calls]
-        for e in events:
-            # the ranges also show on the card's timeline: skip them there
-            if e.device_type != DeviceType.CUDA or \
-                    e.name.startswith("probe_mosaic.call"):
-                continue
-            t = e.time_range.start
-            k = next((k for k, (lo, hi) in spans.items()
-                      if lo - half <= t < hi + half), None)
-            if k is not None:
-                by_call[k].setdefault(e.name, []).append(
-                    e.time_range.end - e.time_range.start)
-        seen = [sum(map(len, names.values())) for names in by_call]
-        if min(seen) * 2 >= reps:
-            return [sum(sum(t) / len(t) * max(1, round(len(t) / reps))
-                        for t in names.values()) / 1e3
-                    for names in by_call]
-    raise RuntimeError(f"the profiler saw {seen} device launches of "
-                       f"{reps} calls each")
-
-
 def launch_floor() -> dict:
     """An empty kernel through the probes' ctypes path: its ms per call
     queued back to back (the host's cost of a launch through ctypes) and
     its device time."""
     x = inputs("cuda")["x4"]
     return dict(ms=_ms_per_call(empty_launch, x),
-                device_ms=_device_ms_per_call([(empty_launch, x)])[0])
+                device_ms=device_ms_per_call([(empty_launch, [x])])[0])
 
 
 def run() -> list:
@@ -348,7 +290,7 @@ def run() -> list:
 
         def kernel(t, i=i):
             return probe_mosaic_cuda(i, t)
-        calls += [(kernel, x), (p.library, x)]
+        calls += [(kernel, [x]), (p.library, [x])]
         rows.append(dict(
             probe=i, name=p.name, max_abs_err=0.0,
             library_max_abs_err=(lib_out - want).abs().max().item(),
@@ -357,7 +299,7 @@ def run() -> list:
             library_ms=_ms_per_call(p.library, x),
             plain_ms=_ms_per_call(p.plain, x)))
         print(f"{p.name}: OK", flush=True)
-    device = _device_ms_per_call(calls)
+    device = device_ms_per_call(calls)
     for r, kernel_ms, library_ms in zip(rows, device[::2], device[1::2]):
         r.update(device_ms=kernel_ms, library_device_ms=library_ms)
     return rows

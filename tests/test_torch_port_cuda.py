@@ -555,13 +555,17 @@ def test_probe_mosaic_kernels_equal_plain_versions(cuda):
 
 
 def test_probe_mosaic_launcher_raises_on_bad_operands(cuda):
-    """The launcher refuses a wrong shape, dtype or device, or a strided
-    operand, and launches nothing then."""
+    """The launcher refuses a wrong shape, dtype or device, a strided
+    operand, or a contiguous one off the 16-byte alignment the kernels'
+    float4 reads need, and launches nothing then."""
     xs = probe_mosaic.inputs(cuda)
     x4 = xs["x4"]
+    shifted = torch.empty(x4.numel() + 1, device=cuda)[1:].view(x4.shape)
+    shifted.copy_(x4)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
     probe_mosaic.LAUNCHES = 0
     for bad in (xs["xw"], x4.double(), x4.cpu(),
-                x4.transpose(0, 1).contiguous().transpose(0, 1)):
+                x4.transpose(0, 1).contiguous().transpose(0, 1), shifted):
         with pytest.raises(ValueError, match="probe 0 takes"):
             probe_mosaic.probe_mosaic_cuda(0, bad)
     with pytest.raises(ValueError, match="probe 1 takes"):
