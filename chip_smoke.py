@@ -8,8 +8,9 @@ Run from the root of a checkout, on a machine with a card:
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit;
   2. build: the kernels K1 (selective-scan forward), K2 (its backward), K3
-     and K4 (the doubling scan that MEDMAMBA_SCAN_KERNEL=hillis selects, and
-     its backward) and K5 (flip + rotation) from medmamba_tpu_torch/csrc/,
+     and K4 (the forward and backward of the scan MEDMAMBA_SCAN_KERNEL=hillis
+     selects; K3 saves a state per 128-step chunk) and K5 (flip + rotation)
+     from medmamba_tpu_torch/csrc/,
      one nvcc for each source, all started together; their registers,
      shared memory, spills; K1's layout at each stage shape (channels a
      block, dynamic shared memory, registers, blocks an SM);
@@ -37,7 +38,8 @@ Phases, in order; any failure exits non-zero:
      and in the log the earlier design's times as timed at a08c9a5
      (K2_EARLIER_MS, constants this run does not measure);
   7. K5 against its plain version at 28^2 and 224^2 (batch 64), exactly;
-     its time;
+     its time per launch queued back to back and by the profiler's device
+     time;
   8. the training path: ``medmamba_tpu_torch.cli.train`` on a synthetic 28^2
      NPZ train/val split, medmamba_t at 224^2, batch 64, one epoch, bfloat16
      blocks, augmentation; each step must make exactly 20 K1, 20 K2 and 1 K5
@@ -55,10 +57,13 @@ Phases, in order; any failure exits non-zero:
      step by kernel family from ``torch.profiler``;
  11. K3 against its plain version at the four stage shapes (batch 64),
      float32 and bfloat16 inputs (every length ends in a short 128-step
-     chunk): y, the chunk-entry states and the last state; one reverse
-     call with valid_len through the dispatcher under hillis against the
-     plain sequential scan; K3's time per stage beside its bound and the
-     plain version's;
+     chunk), and at batch 1 (8-channel blocks): y, the chunk-entry states
+     and the last state; two K3 launches on the same stage-0 inputs must
+     give the same bits; one reverse call with valid_len through the
+     dispatcher under hillis against the plain sequential scan; K3's time
+     per stage beside its bound and the plain version's, and in the log
+     the doubling design's times (K3_EARLIER_MS, constants this run does
+     not measure);
  12. K4 against its plain version at the same shapes, float32 and bfloat16
      inputs; two K4 launches on the same stage-0 inputs must give the same
      bits; its time per stage, and in the log the doubling design's times
@@ -179,14 +184,14 @@ K2_EARLIER_MS = (8.9309, 4.5878, 2.4794, 1.2762)
 # second exponential, the shuffle trees); the bound counts only the need.
 K2_OPS_DNT, K2_OPS_DT, K2_EXPS_DNT = 19, 11, 1
 # K3 and K4 compute what K1 and K2 compute, so their bounds count the same
-# need. K3's doubling costs more: per (b, d, n, t) and level, one
-# multiply-add and one multiply (3 operations), over log2(128) = 7 levels.
-# K3 does the decay and input (3), 7 levels (21) and y's multiply-add (2):
-# 26 per (b, d, n, t). K4 runs K2's sequential adjoint, which needs no
-# doubling, after walking each chunk's first 64 steps to its second tile's
-# entry state.
+# need, with one saved state per 128-step chunk.
 HILLIS_CHUNK = 128
-DOUBLING_OPS_K3 = 26
+# K3 ms per launch at each stage in its doubling design (one thread per step
+# of a 128-step chunk, 7 Kogge-Stone levels of shuffles, the warps joined
+# through shared memory; commit 959b3e2 and before), as PERF.md records its
+# run at commit a08c9a5 on an NVIDIA H100 80GB HBM3 at 700 W; printed beside
+# this run's times
+K3_EARLIER_MS = (3.5310, 1.9299, 1.0978, 1.1097)
 # K4 ms per launch at each stage in its doubling design (one thread per step
 # of a 128-step chunk, two Kogge-Stone doublings, dB/dC/dA by float atomics;
 # commit 6ede5d4 and before), as PERF.md records it on an NVIDIA H100 80GB
@@ -494,10 +499,13 @@ def phase_backward_vs_plain():
 
 
 def phase_rotate_vs_plain():
-    """K5 against its plain version, exactly; its time per launch."""
+    """K5 against its plain version, exactly; its time per launch queued
+    back to back and by the profiler's device time (one session for both
+    sizes)."""
     import torch
 
     from medmamba_tpu_torch.ops import rotate
+    from medmamba_tpu_torch.utils.profiling import device_ms_per_call
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
 
@@ -509,7 +517,7 @@ def phase_rotate_vs_plain():
         flip = torch.rand(BATCH, generator=gen, device="cuda") < 0.5
         return x, torch.sin(angles), torch.cos(angles), flip
 
-    out = {}
+    out, timed = {}, {}
     for size in (28, IMAGE):
         x, sin, cos, flip = operands(size)
         got = rotate.rotate_flip_cuda(x, sin, cos, flip)
@@ -528,12 +536,20 @@ def phase_rotate_vs_plain():
                                20)
         p_ms = back_to_back_ms(lambda s: rotate.rotate_flip_ref(*s), sets,
                                20)
-        del sets
+        timed[size] = sets
         out[size] = dict(size=size, ms=k_ms, plain_ms=p_ms,
                          bound_ms=bound_ms, max_abs_err=err)
-        log(f"  {size}^2 batch {BATCH}: max|err| {err:.3e}; K5 "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"(bytes)")
+    device = device_ms_per_call(
+        [(lambda s: rotate.rotate_flip_cuda(*s), sets)
+         for sets in timed.values()], r"rotate_flip_kernel")
+    del timed
+    for (size, row), dev_ms in zip(out.items(), device):
+        row["device_ms"] = dev_ms
+        log(f"  {size}^2 batch {BATCH}: max|err| {row['max_abs_err']:.3e}; "
+            f"K5 {row['ms']:.4f} ms a launch back to back, device "
+            f"{dev_ms:.4f} ms ({100 * row['bound_ms'] / dev_ms:.0f}% of its "
+            f"bound), plain {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms (bytes)")
     return out
 
 
@@ -755,16 +771,12 @@ def k3_costs(dpg: int, l: int) -> dict:
     """Least times in ms of one float32 K3 launch on the card. Bytes: u,
     delta and y (b, d, L), B and C (b, G, N, L), the chunk-entry and last
     states, A, D and bias, each once; operations: the need K1 counts (7 per
-    (b, d, n, t), 6 per (b, d, t)); ``doubling_ms``: the operations the
-    doubling form does instead (DOUBLING_OPS_K3 per (b, d, n, t))."""
+    (b, d, n, t), 6 per (b, d, t))."""
     d = GROUPS * dpg
     bytes_ms, ops_ms, exp_ms = scan_costs(dpg, l)
     states = 4 * BATCH * d * N_STATE * (-(-l // HILLIS_CHUNK) + 1)
     return dict(bytes_ms=bytes_ms + states / PEAK_BYTES_PER_S * 1e3,
-                ops_ms=ops_ms, exp_ms=exp_ms,
-                doubling_ms=(DOUBLING_OPS_K3 * BATCH * d * N_STATE * l
-                             + 6 * BATCH * d * l)
-                / PEAK_FP32_OPS_PER_S * 1e3)
+                ops_ms=ops_ms, exp_ms=exp_ms)
 
 
 def k4_costs(dpg: int, l: int) -> dict:
@@ -778,20 +790,17 @@ def stage_row(si, dpg, l, blocks, k_ms, p_ms, costs) -> dict:
     row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks, ms=k_ms,
                plain_ms=p_ms, **costs)
     row["bound_ms"] = max(costs["bytes_ms"], costs["ops_ms"])
-    doubling = (f"done by the doubling {costs['doubling_ms']:.4f}, "
-                if "doubling_ms" in costs else "")
     log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.2f} ms, bound {row['bound_ms']:.4f} ms (bytes "
         f"{costs['bytes_ms']:.4f}, fp32 ops needed {costs['ops_ms']:.4f}, "
-        f"{doubling}exp units {costs['exp_ms']:.4f}), x{2 * blocks}")
+        f"exp units {costs['exp_ms']:.4f}), x{2 * blocks}")
     return row
 
 
 def per_pass(stages: list) -> dict:
     """Stage rows summed over the 20 launches of a forward or a step."""
     out = {k: sum(s[k] * s["launches"] for s in stages)
-           for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "doubling_ms",
-                     "exp_ms") if k in stages[0]}
+           for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
     out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
     out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
                        else "operations")
@@ -800,8 +809,9 @@ def per_pass(stages: list) -> dict:
 
 def phase_hillis_fwd_vs_plain():
     """K3 against its plain version at the stage shapes, float32 and
-    bfloat16 inputs; one reverse call with valid_len through the dispatcher
-    against the plain sequential scan; K3 timed per stage."""
+    bfloat16 inputs, and at batch 1; two launches on the same stage-0
+    inputs give the same bits; one reverse call with valid_len through the
+    dispatcher against the plain sequential scan; K3 timed per stage."""
     import torch
 
     from medmamba_tpu_torch.ops import scan_hillis
@@ -812,9 +822,10 @@ def phase_hillis_fwd_vs_plain():
     kernel = scan_hillis.selective_scan_hillis_fwd
     max_err, stages = 0.0, []
     for si, (dpg, l, blocks) in enumerate(STAGES):
-        for label, dtype in (("fp32", torch.float32),
-                             ("bf16 in", torch.bfloat16)):
-            x = scan_inputs(dpg, l, dtype, gen)
+        for label, dtype, batch in (("fp32", torch.float32, BATCH),
+                                    ("bf16 in", torch.bfloat16, BATCH),
+                                    ("fp32 batch 1", torch.float32, 1)):
+            x = scan_inputs(dpg, l, dtype, gen, batch)
             got = kernel(**x, delta_softplus=True)
             want = selective_scan_hillis_ref(**x, delta_softplus=True)
             torch.cuda.synchronize()
@@ -831,6 +842,18 @@ def phase_hillis_fwd_vs_plain():
         set_bytes = costs["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S
         xs = [scan_inputs(dpg, l, torch.float32, gen)
               for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
+        if si == 0:
+            # K3 writes no output with an atomic
+            first = kernel(**xs[0], delta_softplus=True)
+            second = kernel(**xs[0], delta_softplus=True)
+            torch.cuda.synchronize()
+            for part, a, b in zip(("y", "states", "last"), first, second):
+                if not torch.equal(a, b):
+                    raise SystemExit(f"K3 {part}: two launches on the same "
+                                     "inputs differ")
+            log("  stage 0: two K3 launches give the same bits in y, states "
+                "and last")
+            del first, second
         k_ms = back_to_back_ms(lambda x: kernel(**x, delta_softplus=True),
                                xs, 20)
         p_ms = back_to_back_ms(
@@ -838,6 +861,8 @@ def phase_hillis_fwd_vs_plain():
             xs[:1], 1, rounds=1)
         del xs
         stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
+        log(f"  stage {si}: K3's doubling design as timed at a08c9a5: "
+            f"{K3_EARLIER_MS[si]:.4f} ms")
 
     # the SS2D padding pattern in reverse through the dispatcher: flipped
     # around K3, valid_len as delta = -1e4 at the pad, y in float32
@@ -1731,11 +1756,13 @@ def main() -> int:
     log("phase 11: K3 (hillis forward) against its plain version")
     k3_stages, k3_err = phase_hillis_fwd_vs_plain()
     k3 = per_pass(k3_stages)
+    k3_earlier = sum(K3_EARLIER_MS[s["stage"]] * s["launches"]
+                     for s in k3_stages)
     log(f"  K3 per forward ({LAUNCHES_PER_FORWARD} launches): "
-        f"{k3['ms']:.4f} ms; bound {k3['bound_ms']:.4f} ms (bytes "
-        f"{k3['bytes_ms']:.4f}, fp32 ops needed {k3['ops_ms']:.4f}, done by "
-        f"the doubling {k3['doubling_ms']:.4f}); exp units "
-        f"{k3['exp_ms']:.4f} ms; plain {k3['plain_ms']:.1f} ms")
+        f"{k3['ms']:.4f} ms (doubling design as timed at a08c9a5: "
+        f"{k3_earlier:.4f} ms); bound {k3['bound_ms']:.4f} ms (bytes "
+        f"{k3['bytes_ms']:.4f}, fp32 ops needed {k3['ops_ms']:.4f}); exp "
+        f"units {k3['exp_ms']:.4f} ms; plain {k3['plain_ms']:.1f} ms")
 
     log("phase 12: K4 (hillis backward) against its plain version")
     k4_stages, k4_err = phase_hillis_bwd_vs_plain()
@@ -1836,7 +1863,8 @@ def main() -> int:
         "ms": rot[IMAGE]["ms"], "plain_ms": rot[IMAGE]["plain_ms"],
         "bound_ms": rot[IMAGE]["bound_ms"], "bound_by": "bytes",
         "library_ms": None,
-        "ms_28": rot[28]["ms"],
+        "ms_28": rot[28]["ms"], "device_ms": rot[IMAGE]["device_ms"],
+        "device_ms_28": rot[28]["device_ms"],
         "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0)}, {
         "name": "selective_scan_hillis_fwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_fwd.cu",
@@ -1846,7 +1874,7 @@ def main() -> int:
         "max_abs_err": k3_err,
         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
-        "library_ms": None, "doubling_ops_ms": k3["doubling_ms"],
+        "library_ms": None,
         "profiled_ms_per_forward": h_prof["family_ms_per_forward"].get(
             FAMILY["K3"], 0.0),
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K3"], 0.0),

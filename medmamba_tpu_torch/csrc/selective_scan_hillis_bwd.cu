@@ -1,5 +1,5 @@
-// Selective-scan (S6) backward for Hopper (sm_90a) from the chunk states of
-// the doubling forward: the MEDMAMBA_SCAN_KERNEL=hillis backward.
+// Selective-scan (S6) backward for Hopper (sm_90a) from the 128-step chunk
+// states of K3: the MEDMAMBA_SCAN_KERNEL=hillis backward.
 //
 // Replaces the TPU kernel medmamba_tpu/ops/pallas_scan.py:1275 (_bwd_kernel,
 // launched by _bwd_pallas, its within-chunk scans _fwd_chunk_scan and

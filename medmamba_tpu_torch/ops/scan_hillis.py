@@ -1,15 +1,16 @@
-"""The doubling selective-scan kernels K3 (forward) and K4 (backward) on Hopper.
+"""The selective-scan kernels K3 (forward) and K4 (backward) on Hopper.
 
 Counterparts of ``medmamba_tpu/ops/pallas_scan.py``'s ``_fwd_kernel`` and
-``_bwd_kernel``, the scan that ``MEDMAMBA_SCAN_KERNEL=hillis`` selects. The
-kernels are ``csrc/selective_scan_hillis_fwd.cu`` and
+``_bwd_kernel``, the doubling scan that ``MEDMAMBA_SCAN_KERNEL=hillis``
+selects. The kernels are ``csrc/selective_scan_hillis_fwd.cu`` and
 ``csrc/selective_scan_hillis_bwd.cu``, built and loaded by
-``ops/cuda_build.py`` on first launch. Both scan left to right only;
-``ops.selective_scan`` flips reverse groups and tiles a shared u around
-them, as the JAX package's wrapper does. K3 saves the state entering each
-``CHUNK``-step chunk; K4 expands them to the states entering each of K2's
-``scan_cuda.TILE``-step tiles and runs K2's sequential adjoint
-(``csrc/scan_bwd_walk.cuh``) from there: three kernels a launch.
+``ops/cuda_build.py`` on first launch. Neither doubles: K3 runs K1's
+sequential walk (``csrc/scan_fwd_walk.cuh``) and saves the state entering
+each ``CHUNK``-step chunk; K4 expands them to the states entering each of
+K2's ``scan_cuda.TILE``-step tiles and runs K2's sequential adjoint
+(``csrc/scan_bwd_walk.cuh``) from there: three kernels a launch. Both scan
+left to right only; ``ops.selective_scan`` flips reverse groups and tiles a
+shared u around them, as the JAX package's wrapper does.
 
 ``HILLIS_LAUNCHES`` counts K3 launches made through
 :func:`selective_scan_hillis_fwd` and ``HILLIS_BWD_LAUNCHES`` K4 launches
@@ -27,7 +28,7 @@ from medmamba_tpu_torch.ops import cuda_build, scan_cuda
 FWD_SOURCE = "selective_scan_hillis_fwd.cu"
 BWD_SOURCE = "selective_scan_hillis_bwd.cu"
 N_STATE = scan_cuda.N_STATE
-CHUNK = 128        # the doubling's span: the states hold one entry per chunk
+CHUNK = 128        # the TPU kernel's chunk: K3 saves one state per chunk
 
 HILLIS_LAUNCHES = 0
 HILLIS_BWD_LAUNCHES = 0

@@ -540,7 +540,8 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     on any device. On a CUDA tensor the environment variable
     ``MEDMAMBA_SCAN_KERNEL``, read at each call, selects the kernels as it
     does in the JAX package: ``ssd`` (the default) runs K1 and K2 as its
-    backward; ``hillis`` runs the doubling scan K3 and K4 as its backward,
+    backward; ``hillis`` runs K3 and K4 as its backward (the JAX package's
+    doubling scan, computed by sequential walks on the card),
     with the JAX wrapper's semantics (reverse groups flipped around a
     forward-only scan, y always float32, see :func:`_hillis_scan`).
 

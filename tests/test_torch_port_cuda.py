@@ -1,9 +1,10 @@
 """The CUDA kernels against their plain versions, on the card.
 
 K1 (selective-scan forward, with its tile-entry states), K2 (its backward),
-K3 and K4 (the doubling scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its
-backward), K5 (flip + rotation), the probes P1 and P2, and the launch
-counts of a Grad-CAM. Marked ``cuda``: each test skips where
+K3 and K4 (the scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its backward,
+held against the JAX package's doubling written in plain PyTorch), K5 (flip
++ rotation), the probes P1 and P2, and the launch counts of a Grad-CAM.
+Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
 differ only in the order of float32 operations and fused multiply-adds;
@@ -357,7 +358,7 @@ def test_train_step_through_the_kernels_matches_the_plain_scan(cuda):
             assert (p.grad - want[name]).abs().max() <= 1e-4 * top, name
 
 
-# K3 and K4, the doubling scan of MEDMAMBA_SCAN_KERNEL=hillis: L 150 ends in a
+# K3 and K4, the scan of MEDMAMBA_SCAN_KERNEL=hillis: L 150 ends in a
 # short chunk, L 49 is a single short chunk, L 256 with valid_len 200 masks
 # the last chunk
 HILLIS_CASES = {
@@ -399,6 +400,85 @@ def test_hillis_kernels_match_plain_versions(cuda, case):
             continue
         assert g.dtype == w.dtype and g.shape == w.shape, name
         _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+
+
+# K3's edges: lengths around its walk's 64-step tiles and its 128-step chunks
+# (1, 49 and 64 one tile, 127 and 128 one chunk of two tiles, 129 a third tile
+# in a second chunk, 150 a short third tile; float32 rows at 1, 49, 127, 129
+# and 150 and bfloat16 rows at 1, 49, 127, 129, 150 and 196 are not 16-byte
+# aligned and take the 4-byte copies), valid_len below L in the first and in
+# the last chunk, channel counts its blocks do not divide, and D and
+# delta_bias None; each at both widths ("wide" raises the batch until there
+# are 132 blocks of 32 channels, where K3 launches that layout)
+HILLIS_FWD_EDGES = {
+    "l1": dict(l=1), "l49": dict(l=49), "l64": dict(l=64),
+    "l127": dict(l=127), "l128": dict(l=128), "l129": dict(l=129),
+    "l150": dict(l=150), "dpg1": dict(dpg=1, l=129),
+    "dpg5": dict(dpg=5, l=150), "dpg96": dict(dpg=96, l=196),
+    "valid_len_first_chunk": dict(l=196, valid_len=100),
+    "valid_len_last_chunk": dict(l=196, valid_len=150),
+    "no_skip_no_bias": dict(l=129, skip=False),
+}
+
+
+def _hillis_fwd_launch(cuda, case, dtype, width):
+    kw = dict(case)
+    skip = kw.pop("skip", True)
+    valid_len = kw.pop("valid_len", None)
+    dpg = kw.get("dpg", 24)
+    if width == "wide":
+        kw["b"] = -(-132 // (2 * -(-dpg // 32)))
+    x = _inputs(cuda, dtype=getattr(torch, dtype), **kw)
+    if not skip:
+        x["D"] = x["delta_bias"] = None
+    args = [x[k] for k in NAMES]
+    scan_hillis.HILLIS_LAUNCHES = 0
+    got = scan_hillis.selective_scan_hillis_fwd(
+        *args, delta_softplus=True, valid_len=valid_len)
+    assert scan_hillis.HILLIS_LAUNCHES == 1
+    want = selective_scan_hillis_ref(*args, delta_softplus=True,
+                                     valid_len=valid_len)
+    torch.cuda.synchronize()
+    return args, valid_len, got, want
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(HILLIS_FWD_EDGES))
+def test_hillis_forward_matches_plain_version_at_edge_shapes(cuda, shape,
+                                                             dtype, width):
+    """y, the chunk-entry states and the last state, all float32, against
+    the doubling plain version: 1e-4 (both compute in float32 from the same
+    inputs; the doubling and the sequential walk round differently)."""
+    _, _, got, want = _hillis_fwd_launch(cuda, HILLIS_FWD_EDGES[shape],
+                                         dtype, width)
+    for part, g, w in zip(("y", "states", "last"), got, want):
+        assert g.dtype == w.dtype == torch.float32, part
+        assert g.shape == w.shape, part
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("l", [1, 49, 150, 3136])
+def test_hillis_forward_at_batch_1(cuda, l):
+    """Batch 1, a hillis CAM's shape, where K3 launches 8-channel blocks;
+    medmamba_t's first stage at L 3136."""
+    case = dict(b=1, l=l, dpg=96 if l == 3136 else 24)
+    _, _, got, want = _hillis_fwd_launch(cuda, case, "float32", "narrow")
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+def test_hillis_forward_is_deterministic(cuda, width):
+    """Two launches on the same inputs give the same bits: y, the chunk
+    states and the last state (K3 writes no output with an atomic)."""
+    case = dict(dpg=40, l=200, valid_len=180)
+    args, valid_len, first, _ = _hillis_fwd_launch(cuda, case, "float32",
+                                                   width)
+    second = scan_hillis.selective_scan_hillis_fwd(
+        *args, delta_softplus=True, valid_len=valid_len)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 # K4's edges: lengths around its 64-step tiles and K3's 128-step chunks (1,

@@ -179,14 +179,14 @@ def test_k1_and_k2_share_the_tile():
 
 def test_k3_and_k4_share_the_chunk_and_k4_walks_k2s_tile():
     """K4 starts from the state K3 saved at each chunk's entry, so K3's
-    chunk (``kT``) and K4's (``kChunk``) are the wrapper's ``CHUNK``; K4
-    expands them to the entry states of K2's tiles and runs K2's walk, so
-    the walk's tile in K4's build is ``TILE`` and a chunk is two tiles."""
+    chunk and K4's (``kChunk`` in both) are the wrapper's ``CHUNK``. K3 runs
+    K1's walk and saves the state entering every other tile; K4 expands the
+    chunk states to the entry states of K2's tiles and runs K2's walk. So
+    the walk's tile in both builds is ``TILE`` and a chunk is two tiles."""
     assert scan_hillis.CHUNK == 128
-    assert _constants(scan_hillis.FWD_SOURCE, "kT") == [str(scan_hillis.CHUNK)]
-    assert _constants(scan_hillis.BWD_SOURCE, "kChunk") == [
-        str(scan_hillis.CHUNK)]
-    assert _constants(scan_hillis.BWD_SOURCE, "kT") == [str(scan_cuda.TILE)]
+    for source in (scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE):
+        assert _constants(source, "kChunk") == [str(scan_hillis.CHUNK)]
+        assert _constants(source, "kT") == [str(scan_cuda.TILE)]
     assert scan_hillis.CHUNK == 2 * scan_cuda.TILE
     # K2 and K4 build the same walk
     walk = set(cuda_build.source_files(scan_cuda.BWD_SOURCE)[1:])

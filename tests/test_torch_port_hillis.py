@@ -1,5 +1,5 @@
-"""The port's doubling scan (``MEDMAMBA_SCAN_KERNEL=hillis``) against the JAX
-package's, on the CPU.
+"""The port's hillis scan (``MEDMAMBA_SCAN_KERNEL=hillis``) against the JAX
+package's doubling scan, on the CPU.
 
 The JAX side runs its hillis kernels ``_fwd_kernel``/``_bwd_kernel`` in
 Pallas interpret mode, with the variable set as
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from medmamba_tpu.ops import pallas_scan as jps
-from medmamba_tpu_torch.ops import scan_hillis
+from medmamba_tpu_torch.ops import cuda_build, scan_cuda, scan_hillis
 from medmamba_tpu_torch.ops import selective_scan as ts
 from test_torch_port_scan import _inputs, _settle_torch_exp  # noqa: F401
 
@@ -87,6 +87,47 @@ def test_ref_matches_jax_kernel(hillis, l, dtype):
     assert states.shape == (b, d, scan_hillis.n_chunks(l), n)
     _close(states, st, name="states")
     _close(h, np.asarray(last).reshape(b, d, n), name="last")
+
+
+# K3 runs K1's sequential walk over 64-step tiles and saves the state entering
+# every other tile as its 128-step chunk state. L 1: one step; 49: one short
+# tile; 128: two whole tiles; 129: a third tile of one step; 150 and 300: a
+# short last tile, 300 an odd number of them; valid_len below L at 150 and 300
+# (the states past it are the carried state)
+WALK_CASES = [(1, None), (49, None), (128, None), (129, None), (150, 100),
+              (300, 250)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,valid_len", WALK_CASES)
+def test_ref_chunk_states_are_the_sequential_even_tile_states(l, valid_len,
+                                                              dtype):
+    """The doubling's chunk states are the sequential scan's states at the
+    entry of the even 64-step tiles, ceil(L / 128) of them; its y and last
+    state are the sequential scan's, with dt = 0 past valid_len."""
+    x, _ = _case(l + 7, l, dtype)
+    u, delta, A, B, C, D, bias = _torch(x)
+    y, states, last = ts.selective_scan_hillis_ref(
+        u, delta, A, B, C, D, bias, delta_softplus=True, valid_len=valid_len)
+    tiles = ts.selective_scan_states_ref(u, delta, A, B, C, bias, True,
+                                         valid_len=valid_len)
+    assert states.shape[2] == -(-l // 128)
+    _close(states, tiles[:, :, ::2].numpy(), name="states")
+    if valid_len is not None:
+        # softplus(-1e4 + bias) == 0 exactly in float32
+        delta = torch.where(torch.arange(l) < valid_len, delta,
+                            torch.full_like(delta, -1e4))
+    y_s, last_s = ts.selective_scan_ref(u, delta, A, B, C, D, bias, True,
+                                        return_last_state=True)
+    _close(y, y_s.numpy(), name="y")
+    _close(last, last_s.numpy(), name="last")
+
+
+def test_k1_and_k3_build_the_same_walk():
+    """K3 runs K1's walk: both sources include ``scan_fwd_walk.cuh``, so an
+    edit to it rebuilds both."""
+    for source in (scan_cuda.FWD_SOURCE, scan_hillis.FWD_SOURCE):
+        assert "scan_fwd_walk.cuh" in cuda_build.source_files(source), source
 
 
 def _jax_grads(x, gy, **kw):
