@@ -99,10 +99,28 @@ Phases, in order; any failure exits non-zero:
  20. the demo server (``cli.demo``) in a thread: three POSTs (RGB with
      target -1 and 3, RGBA) and ``GET /random?mode=gt``, 40 K1 and no K2
      per request, the page's probabilities against the same model's
-     softmax on the same pixels; the latency per request.
+     softmax on the same pixels; the latency per request;
+ 21. serving export: ``python -m medmamba_tpu_torch.cli.export`` on phase
+     4's medmamba_t checkpoint (224^2, symbolic batch), once as exported
+     and once under MEDMAMBA_SCAN_KERNEL=hillis; each artifact loaded in a
+     fresh process (``LOAD_ARTIFACT``, which imports
+     ``medmamba_tpu_torch.utils.export`` and reads the launch counts) with
+     the variable naming the other kernel, and called at batch 64, 3 and 1
+     on uint8 frames from the seed: exactly 20 K1 and no K3 per call (20 K3
+     and no K1 for the hillis artifact), the probabilities within 1e-5 of
+     the live ``softmax(model(preprocess(x)))`` on the same kernel; the
+     artifact's batch-64 and batch-1 forward against the live one (CUDA
+     events, 10 back to back, median of 3), and again in this process in
+     turns with their device time from the profiler, and the scan kernel's
+     device time a batch-1 forward in each (its layout is chosen at each
+     launch); K1's and K3's batch-1 host time per forward through the graph
+     op against the call the live path made before it (the ctypes wrapper,
+     ``_hillis_scan``); the analytic forward FLOPs an image
+     (``utils/profiling.py: model_flops_report``) and the share of the
+     card's float32 peak the artifact reaches.
 The line before the last lists every kernel of the port (K1, K2, K5, K3,
-K4, P1, P2) with its launches, times and bound; the last line is the JSON
-``{"ok": true, "device": {...}}``.
+K4, P1, P2) with its launches, times and bound, and phase 21's numbers; the
+last line is the JSON ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -197,6 +215,56 @@ K3_EARLIER_MS = (3.5310, 1.9299, 1.0978, 1.1097)
 # commit 6ede5d4 and before), as PERF.md records it on an NVIDIA H100 80GB
 # HBM3 at 700 W; printed beside this run's times
 K4_EARLIER_MS = (7.5073, 4.1517, 2.4880, 2.5834)
+# phase 21: the batches an artifact is called at (the first is timed with
+# the last); the artifact and the live forward run the same kernel on the
+# same aten ops, so 1e-5 holds them to a few float32 roundings
+EXPORT_BATCHES = (BATCH, 3, 1)
+TOL_EXPORT = 1e-5
+# phase 21's loader, run in a fresh process: argv is the artifact, the
+# frames (.npy), an output prefix and the batches; it writes each batch's
+# probabilities to <prefix>_<batch>.npy and prints "result {...}" with the
+# scan launches of each call (K1, K3) and the first and last batches' ms
+# per call (CUDA events, 10 back to back, median of 3)
+LOAD_ARTIFACT = r"""
+import json, statistics, sys
+import numpy as np
+import torch
+from medmamba_tpu_torch.utils.export import load_exported
+from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+
+art, frames, prefix, batches = sys.argv[1:5]
+batches = [int(b) for b in batches.split(",")]
+with open(art, "rb") as f:
+    exp = load_exported(f.read())
+x = torch.from_numpy(np.load(frames)).cuda()
+counts = {}
+for b in batches:
+    scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
+    probs = exp.call(x[:b])
+    torch.cuda.synchronize()
+    counts[b] = [scan_cuda.LAUNCHES, scan_hillis.HILLIS_LAUNCHES]
+    np.save(f"{prefix}_{b}.npy", probs.cpu().numpy())
+
+
+def ms(xb, reps=10, rounds=3):
+    exp.call(xb)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            exp.call(xb)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+print("result " + json.dumps({"counts": counts, "ms": {
+    b: ms(x[:b]) for b in (batches[0], batches[-1])}}))
+"""
 
 
 def log(msg: str) -> None:
@@ -1442,6 +1510,192 @@ def phase_demo(tree: str, pth: str):
                 median_ms=median_ms, prob_err=worst)
 
 
+def run(argv: list, env: dict, what: str) -> str:
+    """Run ``argv`` from the checkout with ``env`` added to the environment;
+    its standard output, or exit non-zero with its output if it fails."""
+    proc = subprocess.run(argv, cwd=REPO, env=dict(os.environ, **env),
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise SystemExit(f"{what} failed ({proc.returncode}):\n"
+                         f"{proc.stdout[-4000:]}\n{proc.stderr[-8000:]}")
+    return proc.stdout
+
+
+def batch1_op_vs_direct(kernel: str) -> dict:
+    """The scan's host time per batch-1 forward (20 launches of ``kernel``,
+    K1 or K3, reverse groups), queued back to back through the graph op
+    (``ops.selective_scan``'s no-grad path) and called as the live path
+    called it before the op (K1's ctypes wrapper; ``_hillis_scan`` around
+    K3's), in turns (direct, op, op, direct)."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+    from medmamba_tpu_torch.ops.selective_scan import (_hillis_scan,
+                                                       selective_scan)
+
+    rev = (True, True)
+    if kernel == "K1":
+        def direct(x):
+            return scan_cuda.selective_scan_fwd(**x, delta_softplus=True,
+                                                reverse_dirs=rev)
+    else:
+        def direct(x):
+            return _hillis_scan(
+                *(x[k] for k in ("u", "delta", "A", "B", "C", "D",
+                                 "delta_bias")), True, False, rev, 1, None,
+                scan_hillis.selective_scan_hillis_fwd,
+                scan_hillis.selective_scan_hillis_bwd)
+    paths = {"direct": direct, "op": lambda x: selective_scan(
+        **x, delta_softplus=True, reverse_dirs=rev)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    per_fwd = dict.fromkeys(paths, 0.0)
+    with scan_kernel("ssd" if kernel == "K1" else "hillis"):
+        for dpg, l, blocks in STAGES:
+            xs = [scan_inputs(dpg, l, torch.float32, gen, batch=1)
+                  for _ in range(8)]
+            # each path runs twice, and each block launches the kernel twice
+            for name in ("direct", "op", "op", "direct"):
+                per_fwd[name] += blocks * back_to_back_ms(paths[name], xs, 20)
+    return per_fwd
+
+
+def phase_export(root: str, pth: str) -> dict:
+    """Phase 21 (see the docstring): ``root`` holds phase 4's checkpoint
+    ``pth``; the artifacts, frames and probabilities go there too."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS, create_model
+    from medmamba_tpu_torch.train.checkpoint import restore_params
+    from medmamba_tpu_torch.utils.export import load_exported
+    from medmamba_tpu_torch.utils.profiling import model_flops_report
+
+    log(f"  torch {torch.__version__}")
+    frames = np.random.default_rng(SEED + 21).integers(
+        0, 256, (max(EXPORT_BATCHES), IMAGE, IMAGE, 3), dtype=np.uint8)
+    frames_path = os.path.join(root, "frames.npy")
+    np.save(frames_path, frames)
+    x = torch.from_numpy(frames).cuda()
+    model = create_model("T", NUM_CLASSES, device="cuda")
+    model.load_state_dict(restore_params(pth)[0], strict=True)
+    model.eval()
+
+    def live(xb):
+        with torch.no_grad():
+            return torch.softmax(model(preprocess(xb, size=IMAGE)), -1)
+
+    macs = model_flops_report(MODEL_CONFIGS["T"].depths,
+                              MODEL_CONFIGS["T"].dims, IMAGE,
+                              num_classes=NUM_CLASSES)["total_macs"]
+    out = {"gflop_per_image": 2 * macs / 1e9}
+    for scan, other in (("ssd", "hillis"), ("hillis", "ssd")):
+        kernel = "K1" if scan == "ssd" else "K3"
+        art = os.path.join(root, f"medmamba_t_{scan}.pt2")
+        t0 = time.perf_counter()
+        line = run([sys.executable, "-m", "medmamba_tpu_torch.cli.export",
+                    "--checkpoint_path", pth, "--out", art, "--image_size",
+                    str(IMAGE)], {"MEDMAMBA_SCAN_KERNEL": scan},
+                   f"cli.export under {scan}").strip().splitlines()[-1]
+        export_s = time.perf_counter() - t0
+        log(f"  cli.export under MEDMAMBA_SCAN_KERNEL={scan}: {line} "
+            f"({export_s:.1f} s wall)")
+        if f"scan kernel {kernel}" not in line:
+            raise SystemExit(f"cli.export under {scan} did not bake {kernel}")
+        t0 = time.perf_counter()
+        res = run([sys.executable, "-c", LOAD_ARTIFACT, art, frames_path,
+                   os.path.join(root, scan),
+                   ",".join(map(str, EXPORT_BATCHES))],
+                  {"MEDMAMBA_SCAN_KERNEL": other},
+                  f"loading the {scan} artifact")
+        load_s = time.perf_counter() - t0
+        res = json.loads(next(ln for ln in res.splitlines()
+                              if ln.startswith("result "))[len("result "):])
+        want_counts = ([LAUNCHES_PER_FORWARD, 0] if scan == "ssd"
+                       else [0, LAUNCHES_PER_FORWARD])
+        worst = 0.0
+        with scan_kernel(scan):
+            for b in EXPORT_BATCHES:
+                got = np.load(os.path.join(root, f"{scan}_{b}.npy"))
+                want = live(x[:b]).cpu().numpy()
+                if got.shape != (b, NUM_CLASSES) \
+                        or not np.isfinite(got).all():
+                    raise SystemExit(f"{scan} artifact at batch {b}: "
+                                     f"probabilities of shape {got.shape}")
+                err = float(np.abs(got - want).max())
+                worst = max(worst, err)
+                counts = res["counts"][str(b)]
+                log(f"  {scan} artifact at batch {b}: K1 {counts[0]}, K3 "
+                    f"{counts[1]} launches a call (loaded with "
+                    f"MEDMAMBA_SCAN_KERNEL={other}); against the live "
+                    f"forward max|err| {err:.3e} (atol {TOL_EXPORT:g})")
+                if counts != want_counts:
+                    raise SystemExit(f"the {scan} artifact launched "
+                                     f"{counts} (K1, K3) at batch {b}, "
+                                     f"expected {want_counts}")
+                if err > TOL_EXPORT:
+                    raise SystemExit(f"the {scan} artifact's probabilities "
+                                     f"are {err:.3e} off the live forward's")
+            live_ms = back_to_back_ms(live, [x[:BATCH]], 10)
+            live_ms1 = back_to_back_ms(live, [x[:1]], 10)
+            # the artifact beside the live forward in this process: in
+            # turns, then the profiler's device time of each at batch 64,
+            # and its scan kernel's at batch 1 (the kernel's layout is
+            # chosen at each launch: the artifact's batch-1 launches take
+            # the narrow blocks as the live ones do)
+            with open(art, "rb") as f:
+                fns = {"live": live, "artifact": load_exported(f.read()).call}
+            turns = {name: [] for name in fns}
+            for name in ("live", "artifact", "artifact", "live"):
+                turns[name].append(back_to_back_ms(fns[name], [x[:BATCH]],
+                                                   10))
+            device, scan_b1 = {}, {}
+            for name, fn in fns.items():
+                device[name] = profile_families(
+                    lambda: fn(x[:BATCH]), "forward")["kernel_ms_per_forward"]
+                scan_b1[name] = profile_families(
+                    lambda: fn(x[:1]), "forward")[
+                        "family_ms_per_forward"].get(FAMILY[kernel], 0.0)
+            del fns
+        art_ms, art_ms1 = res["ms"][str(BATCH)], res["ms"]["1"]
+        out[scan] = dict(
+            artifact_mb=os.path.getsize(art) / 1e6, export_s=export_s,
+            load_and_call_s=load_s, launches_per_call=want_counts,
+            max_abs_err=worst, artifact_ms=art_ms,
+            artifact_img_s=BATCH / art_ms * 1e3, live_ms=live_ms,
+            live_img_s=BATCH / live_ms * 1e3, artifact_ms_batch1=art_ms1,
+            live_ms_batch1=live_ms1, in_turns_ms=turns,
+            device_ms=device, scan_device_ms_batch1=scan_b1,
+            fp32_peak_share=2 * macs * BATCH / art_ms * 1e3
+            / PEAK_FP32_OPS_PER_S)
+        log(f"  {scan} batch {BATCH}: artifact {art_ms:.3f} ms, "
+            f"{out[scan]['artifact_img_s']:.1f} img/s; live {live_ms:.3f} "
+            f"ms, {out[scan]['live_img_s']:.1f} img/s; batch 1: artifact "
+            f"{art_ms1:.3f} ms, live {live_ms1:.3f} ms")
+        log(f"  {scan} batch {BATCH} in this process, in turns (live, "
+            f"artifact, artifact, live): live {turns['live']} ms, artifact "
+            f"{turns['artifact']} ms; device time a forward (profiler, "
+            f"{PROFILE_STEPS} forwards): "
+            f"live {device['live']:.3f} ms, artifact "
+            f"{device['artifact']:.3f} ms; {kernel}'s device time a batch-1 "
+            f"forward: live {scan_b1['live']:.4f} ms, artifact "
+            f"{scan_b1['artifact']:.4f} ms")
+        log(f"  {scan}: analytic forward {out['gflop_per_image']:.3f} GFLOP "
+            f"an image (model_flops_report, 2 FLOPs a MAC): at the "
+            f"artifact's rate {100 * out[scan]['fp32_peak_share']:.2f}% of "
+            f"the float32 peak ({PEAK_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    for kernel, before in (("K1", "the ctypes wrapper"),
+                           ("K3", "_hillis_scan")):
+        out[f"{kernel}_batch1_ms_per_forward"] = t = batch1_op_vs_direct(
+            kernel)
+        log(f"  {kernel} per batch-1 forward ({LAUNCHES_PER_FORWARD} "
+            f"launches, queued back to back): through the graph op "
+            f"{t['op']:.4f} ms, through {before} {t['direct']:.4f} ms; "
+            f"{1e3 * (t['op'] - t['direct']) / LAUNCHES_PER_FORWARD:.1f} "
+            "us more a launch")
+    return out
+
+
 def sum_rows(rows: list) -> dict:
     """Probe rows summed: one call of each case or probe."""
     out = {k: sum(r[k] for r in rows)
@@ -1693,8 +1947,9 @@ def main() -> int:
 
     log("phase 4: serving path (cli.evaluate, medmamba_t 224^2 batch 64)")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
-        model, launches, eval_wall = phase_main_path(root)
+    # kept to phase 21, which exports its checkpoint
+    serve_dir = tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR)
+    model, launches, eval_wall = phase_main_path(serve_dir.name)
 
     log("phase 5: timing")
     fwd_ms, img_s, prof_line = phase_timing(model)
@@ -1824,6 +2079,12 @@ def main() -> int:
 
         log("phase 20: the demo server (cli.demo, medmamba_t 224^2)")
         demo_out = phase_demo(tree, pth)
+
+    log("phase 21: serving export (cli.export, medmamba_t 224^2, symbolic "
+        "batch), loaded in a fresh process")
+    export_out = phase_export(serve_dir.name, os.path.join(
+        serve_dir.name, "medmamba_t.pth"))
+    serve_dir.cleanup()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -1916,6 +2177,7 @@ def main() -> int:
             "hillis_cam_err": cams["hillis_err"],
             "folder_eval": cams["folder_eval"]},
         "demo": demo_out,
+        "export": export_out,
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
         "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()}}))
     log(json.dumps({"ok": True, "device": {

@@ -21,10 +21,13 @@ entry point: on a CUDA tensor it launches the hand-written kernels that
 ``MEDMAMBA_SCAN_KERNEL`` selects (``ssd``, the default: ``ops/scan_cuda.py``,
 K1 forward and K2 as its backward; ``hillis``: ``ops/scan_hillis.py``, K3
 forward and K4 as its backward), on a CPU tensor it runs the plain version
-and autograd differentiates its loop. ``selective_scan_states_ref`` and
-``selective_scan_bwd_ref`` are the plain versions of K1's tile-entry states
-and of K2; ``selective_scan_hillis_ref`` and
-``selective_scan_hillis_bwd_ref`` those of K3 and K4.
+and autograd differentiates its loop. Where no gradient is needed, the
+forward goes through a graph op of ``ops/scan_op.py``, which
+``torch.export`` keeps as one node and which runs the same kernel or plain
+version. ``selective_scan_states_ref`` and ``selective_scan_bwd_ref`` are
+the plain versions of K1's tile-entry states and of K2;
+``selective_scan_hillis_ref`` and ``selective_scan_hillis_bwd_ref`` those of
+K3 and K4.
 """
 from __future__ import annotations
 
@@ -536,8 +539,10 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     """Selective scan with the JAX package's call-site contract.
 
     impl: "auto" launches the CUDA kernels on a CUDA tensor and runs the
-    plain sequential version on a CPU tensor; "ref" runs the plain version
-    on any device. On a CUDA tensor the environment variable
+    plain sequential version on a CPU tensor, through a graph op of
+    ``ops/scan_op.py`` where no gradient is needed (the eval forward, and
+    what ``torch.export`` traces); "ref" runs the plain version on any
+    device, never through an op. On a CUDA tensor the environment variable
     ``MEDMAMBA_SCAN_KERNEL``, read at each call, selects the kernels as it
     does in the JAX package: ``ssd`` (the default) runs K1 and K2 as its
     backward; ``hillis`` runs K3 and K4 as its backward (the JAX package's
@@ -567,24 +572,37 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         raise ValueError("valid_len requires delta_softplus semantics")
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown selective-scan impl {impl!r}")
-    if impl == "auto" and u.is_cuda and _kernel_impl() == "hillis":
-        return _hillis_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
-                            return_last_state, reverse_dirs, u_tile,
+    args = (u, delta, A, B, C, D, delta_bias, delta_softplus)
+    auto = impl == "auto"
+    hillis = auto and u.is_cuda and _kernel_impl() == "hillis"
+    if auto and not (torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (u, delta, A, B, C, D, delta_bias))):
+        op = (scan_op.selective_scan_hillis_fwd if hillis
+              else scan_op.selective_scan_fwd)
+        out = op(*args, return_last_state, reverse_dirs, u_tile, out_dtype,
+                 valid_len)
+        return tuple(out) if return_last_state else out[0]
+    if hillis:
+        return _hillis_scan(*args, return_last_state, reverse_dirs, u_tile,
                             valid_len, scan_hillis.selective_scan_hillis_fwd,
                             scan_hillis.selective_scan_hillis_bwd)
-    if impl == "auto" and u.is_cuda:
+    if auto and u.is_cuda:
         kw = dict(delta_softplus=delta_softplus, reverse_dirs=reverse_dirs,
                   u_tile=u_tile, out_dtype=out_dtype, valid_len=valid_len)
-        if torch.is_grad_enabled() and any(
-                x is not None and x.requires_grad
-                for x in (u, delta, A, B, C, D, delta_bias)):
-            return _KernelScan.apply(u, delta, A, B, C, D, delta_bias,
-                                     return_last_state, kw)
-        y, last, _ = scan_cuda.selective_scan_fwd(
-            u, delta, A, B, C, D, delta_bias,
-            return_last_state=return_last_state, **kw)
-        return (y, last) if return_last_state else y
+        return _KernelScan.apply(u, delta, A, B, C, D, delta_bias,
+                                 return_last_state, kw)
+    return _plain_scan(*args, return_last_state, reverse_dirs, u_tile,
+                       out_dtype, valid_len)
 
+
+def _plain_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                return_last_state, reverse_dirs, u_tile, out_dtype,
+                valid_len):
+    """The plain version with the call-site contract of
+    :func:`selective_scan`: the tiled u materialized, the padding made
+    identity steps, reverse groups flipped around :func:`selective_scan_ref`
+    and y flipped back; autograd differentiates it."""
     g = B.shape[1]
     if u_tile > 1:
         u = torch.cat([u] * u_tile, dim=1)
@@ -603,3 +621,7 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         y = _flip_groups(y, g, reverse_dirs)
     y = y.to(out_dtype or torch.float32)
     return (y, last) if return_last_state else y
+
+
+# the graph ops run the functions above, so they are registered last
+from medmamba_tpu_torch.ops import scan_op  # noqa: E402

@@ -1,14 +1,20 @@
-"""Device time per call from ``torch.profiler``.
+"""Device time per call from ``torch.profiler``, and the analytic FLOPs of
+a VSSM.
 
 ``device_ms_per_call`` times several functions on the card in one profiler
 session: the tracer of a process that has opened many sessions can record
 no device events at all, so a caller asks once for every function it times.
-Nothing runs at import.
+``model_flops_report`` is the port's copy of the JAX package's
+(``medmamba_tpu/utils/profiling.py``); its ``trace`` (a ``jax.profiler``
+region) has no counterpart here. Nothing runs at import.
 """
 from __future__ import annotations
 
 import re
 import time
+from typing import Dict
+
+from medmamba_tpu_torch.ops.flops import flops_selective_scan, flops_ss2d
 
 REPS = 50            # calls of each function in the session
 _GAP_S = 0.01        # the card idles this long between two functions' calls
@@ -79,3 +85,31 @@ def device_ms_per_call(calls: list, pattern: str | None = None) -> list:
             return ms
     raise RuntimeError(f"the profiler saw too few device events of {REPS} "
                        f"calls each in {_TRIES} sessions: {ms}")
+
+
+def model_flops_report(depths, dims, image_size: int = 224,
+                       d_state: int = 16, num_classes: int = 1000) -> Dict:
+    """Analytic MACs per image of a VSSM config's forward: per stage the
+    SS2D blocks, the conv branch and the patch merging, plus the patch
+    embedding and the head."""
+    h = w = image_size // 4
+    total = 0.0
+    per_stage = []
+    # patch embed: conv 4x4 s4, 3 -> dims[0]
+    total += (image_size // 4) ** 2 * dims[0] * 3 * 16
+    for i, (depth, dim) in enumerate(zip(depths, dims)):
+        stage = 0.0
+        half = dim // 2
+        for _ in range(depth):
+            stage += flops_ss2d(h, w, half, d_state)
+            # conv branch: 2x conv3x3 + conv1x1 on half channels
+            stage += h * w * (half * half * 9 * 2 + half * half)
+        if i < len(depths) - 1:
+            stage += (h // 2) * (w // 2) * (4 * dim) * (2 * dim)  # merging
+            h, w = h // 2, w // 2
+        per_stage.append(stage)
+        total += stage
+    total += dims[-1] * num_classes
+    return {"total_macs": total, "per_stage_macs": per_stage,
+            "scan_macs_stage0": flops_selective_scan(
+                1, (image_size // 4) ** 2, 4 * dims[0], d_state)}

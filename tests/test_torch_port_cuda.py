@@ -3,7 +3,8 @@
 K1 (selective-scan forward, with its tile-entry states), K2 (its backward),
 K3 and K4 (the scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its backward,
 held against the JAX package's doubling written in plain PyTorch), K5 (flip
-+ rotation), the probes P1 and P2, and the launch counts of a Grad-CAM.
++ rotation), the probes P1 and P2, the launch counts of a Grad-CAM, and the
+graph ops of ``ops/scan_op.py`` and an exported artifact on the card.
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from medmamba_tpu_torch.models import vssm as tv
-from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
+from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis, scan_op
 from medmamba_tpu_torch.ops.selective_scan import (
     selective_scan, selective_scan_bwd_ref, selective_scan_hillis_bwd_ref,
     selective_scan_hillis_ref, selective_scan_states_ref)
@@ -693,3 +694,108 @@ def test_grad_cam_launches_the_backward_only_downstream(cuda, scan,
                         substitute=dict(zip(sites, target_activations(
                             model, x, sites))))
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+# medmamba_t's scan shapes at 224^2: channels per group and length
+STAGE_SHAPES = [(96, 3136), (192, 784), (384, 196), (768, 49)]
+
+
+def _op_args(x, **kw):
+    """The graph ops' positional arguments: ``ops.selective_scan``'s
+    call-site contract with delta_softplus."""
+    kw = dict(dict(return_last_state=False, reverse_dirs=None, u_tile=1,
+                   out_dtype=None, valid_len=None), **kw)
+    return (*(x[k] for k in NAMES), True, kw["return_last_state"],
+            kw["reverse_dirs"], kw["u_tile"], kw["out_dtype"],
+            kw["valid_len"])
+
+
+@pytest.mark.parametrize("batch", [64, 1])
+@pytest.mark.parametrize("stage", range(len(STAGE_SHAPES)))
+def test_scan_op_gives_the_k1_wrappers_bits(cuda, stage, batch):
+    """``medmamba::selective_scan_fwd`` on CUDA tensors is one K1 launch:
+    y and the last state equal the direct wrapper's bits, a forward and a
+    reverse group in one call, at the stage shapes of the eval forward and
+    of a demo request."""
+    dpg, l = STAGE_SHAPES[stage]
+    x = _inputs(cuda, b=batch, dpg=dpg, l=l)
+    want = scan_cuda.selective_scan_fwd(
+        **x, delta_softplus=True, reverse_dirs=[False, True],
+        return_last_state=True)
+    scan_cuda.LAUNCHES = 0
+    got = scan_op.selective_scan_fwd(*_op_args(
+        x, reverse_dirs=[False, True], return_last_state=True))
+    torch.cuda.synchronize()
+    assert scan_cuda.LAUNCHES == 1 and len(got) == 2
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("op", ["selective_scan_fwd",
+                                "selective_scan_hillis_fwd"])
+def test_scan_ops_pass_opcheck_on_the_card(cuda, op):
+    x = _inputs(cuda, b=2, dpg=8, l=70)
+    torch.library.opcheck(getattr(scan_op, op), _op_args(
+        x, reverse_dirs=[True, False], return_last_state=True,
+        valid_len=60))
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_exported_model_launches_the_kernel_it_was_exported_with(
+        cuda, scan, monkeypatch):
+    """A tiny VSSM (3 blocks) exported on the card: each call of the
+    artifact makes 2 launches a block of K1, or of K3 when exported under
+    hillis, whichever kernel the environment names when it runs, and gives
+    the live forward's probabilities."""
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.utils.export import export_forward, load_exported
+
+    kw = dict(num_classes=3, depths=(1, 2), dims=(16, 32))
+    model = tv.VSSM(**kw).eval()
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    blob = export_forward(model, image_size=32, device="cuda")
+    model = model.to(cuda)
+    x = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        want = torch.softmax(model(preprocess(x, size=32)), -1)
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL",
+                       "hillis" if scan == "ssd" else "ssd")
+    exp = load_exported(blob)
+    for b in (3, 1):
+        scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
+        got = exp.call(x[:b])
+        torch.cuda.synchronize()
+        counts = (scan_cuda.LAUNCHES, scan_hillis.HILLIS_LAUNCHES)
+        assert counts == ((6, 0) if scan == "ssd" else (0, 6)), counts
+        torch.testing.assert_close(got, want[:b], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("op,module", [
+    ("selective_scan_fwd", scan_cuda), ("selective_scan_hillis_fwd",
+                                        scan_hillis)])
+def test_scan_op_raises_a_failed_build_or_launch(cuda, op, module,
+                                                 monkeypatch):
+    """Nothing falls back: a kernel that does not build or does not launch
+    raises through the op, and counts no launch."""
+    from types import SimpleNamespace
+
+    from medmamba_tpu_torch.ops import cuda_build
+
+    args = _op_args(_inputs(cuda))
+    fn = getattr(scan_op, op)
+    failing = SimpleNamespace(
+        medmamba_cuda_error_string=lambda rc: b"injected failure")
+    setattr(failing, f"medmamba_{op}", lambda *a: 2)
+    monkeypatch.setitem(cuda_build._libs, module.FWD_SOURCE, failing)
+    scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
+    with pytest.raises(RuntimeError, match="injected failure"):
+        fn(*args)
+    monkeypatch.delitem(cuda_build._libs, module.FWD_SOURCE)
+
+    def no_compiler(*sources):
+        raise RuntimeError("nvcc failed")
+
+    monkeypatch.setattr(cuda_build, "build", no_compiler)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        fn(*args)
+    assert scan_cuda.LAUNCHES == scan_hillis.HILLIS_LAUNCHES == 0

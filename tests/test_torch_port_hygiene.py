@@ -31,6 +31,9 @@ def test_importing_the_port_loads_no_jax():
             "import medmamba_tpu_torch.utils.png\n"
             "from medmamba_tpu_torch.tools import probe_vpu, probe_mosaic\n"
             "import medmamba_tpu_torch.tools.cam_agreement\n"
+            "import medmamba_tpu_torch.cli.export\n"
+            "import medmamba_tpu_torch.utils.export\n"
+            "import medmamba_tpu_torch.ops.flops\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
             "bad += [m.__name__ for m in (probe_vpu, probe_mosaic) "
