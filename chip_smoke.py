@@ -117,10 +117,23 @@ Phases, in order; any failure exits non-zero:
      op against the call the live path made before it (the ctypes wrapper,
      ``_hillis_scan``); the analytic forward FLOPs an image
      (``utils/profiling.py: model_flops_report``) and the share of the
-     card's float32 peak the artifact reaches.
-The line before the last lists every kernel of the port (K1, K2, K5, K3,
-K4, P1, P2) with its launches, times and bound, and phase 21's numbers; the
-last line is the JSON ``{"ok": true, "device": {...}}``.
+     card's float32 peak the artifact reaches;
+ 22. the bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16): K1-K4 in
+     the mode against their plain versions in the mode at the four stage
+     shapes (batch 64, float32 and bfloat16 inputs, and batch 1), each
+     output relative to its largest entry; the mode moved each kernel's
+     output off its float32 instantiation's; K2 and K4 give the same bits
+     on every launch in the mode; each kernel's time per stage in the mode
+     and in float32, in turns, beside the same bound; then ``cli.train``
+     and ``cli.evaluate`` under the mode on K1/K2 and on K3/K4 with exact
+     launch counts; medmamba_t's logits and its first training step's loss
+     in the mode within 2e-2 of the float32 mode's, on both kernel pairs;
+     and the eval forward and the bfloat16-block train step timed in the
+     mode, on both pairs, with the device time by kernel family on K1/K2.
+Each phase's header says when it started. The line before the last lists
+every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
+times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers),
+and phase 21's; the last line is the JSON ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -220,6 +233,13 @@ K4_EARLIER_MS = (7.5073, 4.1517, 2.4880, 2.5834)
 # same aten ops, so 1e-5 holds them to a few float32 roundings
 EXPORT_BATCHES = (BATCH, 3, 1)
 TOL_EXPORT = 1e-5
+# phase 22: the bfloat16 compute mode's logits and first-step loss against
+# the float32 mode's, relative to the largest logit and to the loss: the
+# mode's own accuracy, as the JAX package's tests hold its mode
+TOL_BF16_MODE = 2e-2
+# a kernel in the mode must move its output off the float32 instantiation's
+# by at least this share of its scale (the mode moves y by 2e-3 to 1e-2)
+BF16_MOVES = 1e-3
 # phase 21's loader, run in a fresh process: argv is the artifact, the
 # frames (.npy), an output prefix and the batches; it writes each batch's
 # probabilities to <prefix>_<batch>.npy and prints "result {...}" with the
@@ -272,18 +292,29 @@ def log(msg: str) -> None:
 
 
 @contextlib.contextmanager
-def scan_kernel(name: str):
-    """Within the block ``MEDMAMBA_SCAN_KERNEL`` is ``name``: the port reads
-    it at each scan call."""
-    old = os.environ.get("MEDMAMBA_SCAN_KERNEL")
-    os.environ["MEDMAMBA_SCAN_KERNEL"] = name
+def setenv(var: str, value: str):
+    """Within the block the environment variable ``var`` is ``value``."""
+    old = os.environ.get(var)
+    os.environ[var] = value
     try:
         yield
     finally:
         if old is None:
-            os.environ.pop("MEDMAMBA_SCAN_KERNEL")
+            os.environ.pop(var)
         else:
-            os.environ["MEDMAMBA_SCAN_KERNEL"] = old
+            os.environ[var] = old
+
+
+def scan_kernel(name: str):
+    """Within the block ``MEDMAMBA_SCAN_KERNEL`` is ``name``: the port reads
+    it at each scan call."""
+    return setenv("MEDMAMBA_SCAN_KERNEL", name)
+
+
+def scan_compute(name: str):
+    """Within the block ``MEDMAMBA_SCAN_COMPUTE`` is ``name``: the port
+    reads it at each scan call."""
+    return setenv("MEDMAMBA_SCAN_COMPUTE", name)
 
 
 def back_to_back_ms(fn, inputs: list, reps: int, rounds: int = 3) -> float:
@@ -1696,6 +1727,292 @@ def phase_export(root: str, pth: str) -> dict:
     return out
 
 
+def phase_bf16_kernels():
+    """K1-K4 in the bfloat16 compute mode against their plain versions in
+    the mode at the stage shapes (batch 64 float32 and bfloat16 inputs,
+    batch 1 float32), each output relative to its largest entry: float32
+    outputs 1e-4 (the roundings fall on the same float32 values; the sums
+    run in another order), bfloat16 outputs 1e-2 (their last rounding).
+    K2 and K4 run on the states their forward kernel wrote, so each is held
+    alone. On the float32 batch-64 inputs each kernel's output moves by at
+    least BF16_MOVES of its scale off the float32 instantiation's (dD, which
+    no rounding reaches, keeps its bits); K2 and K4 give the same bits on
+    two launches at stage 0; each kernel's time per stage, float32 inputs,
+    in the mode and in float32 in turns (float32, mode, mode, float32),
+    beside the float32 bound (the mode moves the same bytes). Returns
+    {kernel: stage rows} and {kernel: max abs error of float32 outputs}."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+    from medmamba_tpu_torch.ops import selective_scan as ss
+
+    names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    b16, f32, mixed = "bfloat16", torch.float32, (False, True)
+
+    def args(x):
+        return [x[k] for k in names]
+
+    def k1(x, compute, out_dtype=None):
+        return scan_cuda.selective_scan_fwd(
+            **x, delta_softplus=True, reverse_dirs=mixed,
+            out_dtype=out_dtype, return_last_state=True, return_states=True,
+            compute=compute)
+
+    def k1_plain(x, out_dtype=None):
+        y, last = ss._plain_scan(*args(x), True, True, mixed, 1, out_dtype,
+                                 None, b16)
+        return y, last, ss.selective_scan_states_ref(
+            *args(x)[:5], x["delta_bias"], True, mixed, compute=b16)
+
+    def k2(s, compute, impl=scan_cuda.selective_scan_bwd):
+        x, states, gy = s
+        return impl(*args(x), states, gy, delta_softplus=True,
+                    reverse_dirs=mixed, compute=compute)
+
+    def k3(x, compute, impl=scan_hillis.selective_scan_hillis_fwd):
+        return impl(*args(x), delta_softplus=True, compute=compute)
+
+    def k4(s, compute, impl=scan_hillis.selective_scan_hillis_bwd):
+        x, states, gy = s
+        return impl(*args(x), states, gy, delta_softplus=True,
+                    compute=compute)
+
+    def timed(fn):
+        """fn's result and its time in ms on the card (one call)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    max_abs = dict.fromkeys(("K1", "K2", "K3", "K4"), 0.0)
+
+    def check(kernel, label, parts, got, want):
+        errs = {}
+        for part, g, w in zip(parts, got, want):
+            if w is None:
+                continue
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise SystemExit(f"{kernel} in the bfloat16 mode, {part}: "
+                                 f"{g.dtype} {tuple(g.shape)}, expected "
+                                 f"{w.dtype} {tuple(w.shape)}")
+            errs[part] = rel_err(g, w)
+            tol = TOL_BF16_OUT if g.dtype == torch.bfloat16 else TOL_FP32
+            if errs[part] > tol:
+                raise SystemExit(f"{kernel} in the bfloat16 mode {label} "
+                                 f"{part}: relative error {errs[part]:.3e} "
+                                 f"above {tol:g}")
+            if g.dtype == torch.float32:
+                max_abs[kernel] = max(max_abs[kernel],
+                                      (g - w).abs().max().item())
+        log(f"  {kernel} {label}: " + ", ".join(
+            f"{k} {v:.1e}" for k, v in errs.items()) + " of their scale")
+
+    def moved(kernel, got, f32_out, parts):
+        out = {}
+        for part, g, w in zip(parts, got, f32_out):
+            if w is None or not w.any():
+                continue      # the states of a one-tile scan: zero in both
+            out[part] = rel_err(g, w)
+            if part == "dD":
+                if not torch.equal(g, w):
+                    raise SystemExit(f"{kernel}: dD moved in the mode")
+            elif out[part] < BF16_MOVES:
+                raise SystemExit(f"{kernel} in the bfloat16 mode: {part} "
+                                 f"moved {out[part]:.2e} of its scale off "
+                                 f"float32, under {BF16_MOVES:g}")
+        log(f"  {kernel} moved off float32: " + ", ".join(
+            f"{k} {v:.1e}" for k, v in out.items()))
+
+    fwd_parts = ("y", "last", "states")
+    grad_parts = tuple("d" + n for n in names)
+    rows = {k: [] for k in max_abs}
+    for si, (dpg, l, blocks) in enumerate(STAGES):
+        plain = {}
+        for label, dtype, batch in (("fp32", f32, BATCH),
+                                    ("bf16 in", torch.bfloat16, BATCH),
+                                    ("fp32 batch 1", f32, 1)):
+            x = scan_inputs(dpg, l, dtype, gen, batch)
+            tag = f"stage {si} D={GROUPS * dpg} L={l} {label}"
+            got1 = k1(x, b16, dtype)
+            want1, plain["K1"] = timed(lambda: k1_plain(x, dtype))
+            check("K1", tag, fwd_parts, got1, want1)
+            gy = torch.randn(got1[0].shape, generator=gen,
+                             device="cuda").to(dtype)
+            s2 = (x, got1[2], gy)
+            want2, plain["K2"] = timed(
+                lambda: k2(s2, b16, ss.selective_scan_bwd_ref))
+            check("K2", tag, grad_parts, k2(s2, b16), want2)
+            got3 = k3(x, b16)
+            want3, plain["K3"] = timed(
+                lambda: k3(x, b16, ss.selective_scan_hillis_ref))
+            check("K3", tag, ("y", "states", "last"), got3, want3)
+            s4 = (x, got3[1], torch.randn(got3[0].shape, generator=gen,
+                                          device="cuda"))
+            want4, plain["K4"] = timed(
+                lambda: k4(s4, b16, ss.selective_scan_hillis_bwd_ref))
+            check("K4", tag, grad_parts, k4(s4, b16), want4)
+            if label == "fp32":
+                plain_ms = dict(plain)
+                moved("K1", got1, k1(x, "float32"), fwd_parts)
+                moved("K2", k2(s2, b16), k2(s2, "float32"), grad_parts)
+                moved("K3", got3, k3(x, "float32"), ("y", "states", "last"))
+                moved("K4", k4(s4, b16), k4(s4, "float32"), grad_parts)
+                if si == 0:
+                    for kernel, fn, s in (("K2", k2, s2), ("K4", k4, s4)):
+                        first, second = fn(s, b16), fn(s, b16)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(first, second) if a is not None):
+                            raise SystemExit(f"{kernel} in the bfloat16 "
+                                             "mode: two launches differ")
+                    log("  stage 0: two K2 and two K4 launches in the mode "
+                        "give the same bits in every gradient")
+            del x, gy, s2, s4, got1, got3
+        # time per launch, float32 inputs, float32 and the mode in turns
+        costs = {"K1": dict(zip(("bytes_ms", "ops_ms", "exp_ms"),
+                                scan_costs(dpg, l))),
+                 "K2": dict(zip(("bytes_ms", "ops_ms", "exp_ms"),
+                                k2_costs(dpg, l))),
+                 "K3": k3_costs(dpg, l), "K4": k4_costs(dpg, l)}
+        n_sets = max(2, math.ceil(3 * L2_BYTES / (
+            costs["K2"]["bytes_ms"] * 1e-3 * PEAK_BYTES_PER_S)))
+        xs = [scan_inputs(dpg, l, f32, gen) for _ in range(n_sets)]
+        work = {"K1": (k1, xs), "K3": (k3, xs),
+                "K2": (k2, [(x, k1(x, "float32")[2],
+                             torch.randn(x["delta"].shape, generator=gen,
+                                         device="cuda")) for x in xs]),
+                "K4": (k4, [(x, k3(x, "float32")[1],
+                             torch.randn(x["delta"].shape, generator=gen,
+                                         device="cuda")) for x in xs])}
+        for kernel, (fn, sets) in work.items():
+            t = [back_to_back_ms(lambda s, c=c: fn(s, c), sets, 20)
+                 for c in ("float32", b16, b16, "float32")]
+            row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks,
+                       ms=(t[1] + t[2]) / 2, ms_fp32=(t[0] + t[3]) / 2,
+                       in_turns=t, plain_ms=plain_ms[kernel],
+                       **costs[kernel])
+            row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+            rows[kernel].append(row)
+            log(f"  stage {si} D={GROUPS * dpg} L={l}: {kernel} in the mode "
+                f"{row['ms']:.4f} ms, float32 {row['ms_fp32']:.4f} ms (in "
+                f"turns {' '.join(f'{v:.4f}' for v in t)}), bound "
+                f"{row['bound_ms']:.4f} ms, plain in the mode "
+                f"{row['plain_ms']:.1f} ms, x{2 * blocks}")
+        del work, xs
+    return rows, max_abs
+
+
+def phase_bf16_model(root: str):
+    """The main paths under the bfloat16 compute mode on both kernel
+    pairs: cli.train and cli.evaluate with exact launch counts; the
+    logits of medmamba_t at batch 64 and its first training step's loss
+    (bfloat16 blocks, augmentation, the same generator) against the float32
+    mode's; the eval forward (10 back to back) and the bfloat16-block train
+    step with augmentation on a resident uint8 batch (5 back to back), each
+    timed in the float32 mode and in the bfloat16 mode in turns (float32,
+    mode, mode, float32: the steps are host-bound and swing between
+    calls), and on K1/K2 their device time by kernel family in the
+    mode."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    out = {}
+    images = torch.from_numpy(np.random.default_rng(SEED + 10).integers(
+        0, 256, (BATCH, 28, 28, 3), dtype=np.uint8)).cuda()
+    labels = torch.arange(BATCH, device="cuda") % NUM_CLASSES
+    for scan, fwd, bwd in (("ssd", "K1", "K2"), ("hillis", "K3", "K4")):
+        res = out[scan] = {}
+        with scan_kernel(scan), scan_compute("bfloat16"):
+            path = os.path.join(root, scan)
+            os.makedirs(path)
+            res["train_counts"], _ = phase_train_path(path, fwd, bwd)
+        model = create_model("T", NUM_CLASSES, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        model.eval()
+        x = preprocess(images, size=IMAGE)
+        logits, loss = {}, {}
+        for compute in ("float32", "bfloat16"):
+            with scan_kernel(scan), scan_compute(compute):
+                with torch.inference_mode():
+                    logits[compute] = model(x)
+                net = create_model(
+                    "T", NUM_CLASSES, dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator().manual_seed(SEED))
+                opt, _ = trainer.make_optimizer(net.parameters(), 1e-3, True)
+                loss[compute] = trainer.train_step(
+                    net, opt, images, labels, augment=True, image_size=IMAGE,
+                    generator=torch.Generator(device="cuda").manual_seed(
+                        SEED)).item()
+                del net, opt
+        res["logits_rel_err"] = rel_err(logits["bfloat16"],
+                                        logits["float32"])
+        res["loss"] = loss
+        loss_err = abs(loss["bfloat16"] - loss["float32"]) / max(
+            1.0, abs(loss["float32"]))
+        log(f"  {scan} in the mode against float32: logits (batch {BATCH}) "
+            f"{res['logits_rel_err']:.3e} of their scale, first-step loss "
+            f"{loss['bfloat16']:.6f} against {loss['float32']:.6f} "
+            f"({loss_err:.3e}; limit {TOL_BF16_MODE:g} for both)")
+        if not (math.isfinite(loss["bfloat16"]) and torch.isfinite(
+                logits["bfloat16"]).all()):
+            raise SystemExit(f"{scan} in the bfloat16 mode: not finite")
+        if res["logits_rel_err"] > TOL_BF16_MODE or loss_err > TOL_BF16_MODE:
+            raise SystemExit(f"{scan} in the bfloat16 mode strays from "
+                             "float32")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+        big = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=gen,
+                            device="cuda", dtype=torch.uint8)
+        net = create_model("T", NUM_CLASSES, dtype=torch.bfloat16,
+                           device="cuda",
+                           generator=torch.Generator().manual_seed(SEED))
+        opt, _ = trainer.make_optimizer(net.parameters(), 1e-3, True)
+
+        def step(_):
+            return trainer.train_step(net, opt, big, labels, generator=gen,
+                                      augment=True, image_size=IMAGE)
+        turns = {"eval": [], "train": []}
+        with scan_kernel(scan), torch.inference_mode():
+            for compute in ("float32", "bfloat16", "bfloat16", "float32"):
+                with scan_compute(compute):
+                    turns["eval"].append(back_to_back_ms(model, [x], 10))
+        with scan_kernel(scan):
+            for compute in ("float32", "bfloat16", "bfloat16", "float32"):
+                with scan_compute(compute):
+                    turns["train"].append(back_to_back_ms(step, [None], 5))
+        for name, t in turns.items():
+            ms, ms32 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            res.update({f"{name}_ms": ms, f"{name}_img_s": BATCH / ms * 1e3,
+                        f"{name}_ms_fp32": ms32,
+                        f"{name}_img_s_fp32": BATCH / ms32 * 1e3,
+                        f"{name}_in_turns_ms": t})
+            what = ("eval forward" if name == "eval"
+                    else "bf16-block train step")
+            log(f"  {scan} {what}: in the mode {ms:.3f} ms, "
+                f"{BATCH / ms * 1e3:.1f} img/s; float32 {ms32:.3f} ms, "
+                f"{BATCH / ms32 * 1e3:.1f} img/s (in turns "
+                f"{' '.join(f'{v:.3f}' for v in t)})")
+        res["eval_profile"] = res["train_profile"] = None
+        if scan == "ssd":
+            with scan_kernel(scan), scan_compute("bfloat16"):
+                with torch.inference_mode():
+                    res["eval_profile"] = profile_families(
+                        lambda: model(x), "forward")
+                res["train_profile"] = profile_families(lambda: step(None),
+                                                        "step")
+        del model, logits, net, opt
+        torch.cuda.empty_cache()
+    return out
+
+
 def sum_rows(rows: list) -> dict:
     """Probe rows summed: one call of each case or probe."""
     out = {k: sum(r[k] for r in rows)
@@ -1910,7 +2227,11 @@ def main() -> int:
     from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
 
     t_start = time.perf_counter()
-    log("phase 1: device")
+
+    def header(msg: str) -> None:
+        log(f"{msg} [at {time.perf_counter() - t_start:.1f} s]")
+
+    header("phase 1: device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -1918,7 +2239,7 @@ def main() -> int:
     log(f"  {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
-    log("phase 2: build")
+    header("phase 2: build")
     t0 = time.perf_counter()
     sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE, rotate.SOURCE,
                scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE,
@@ -1942,16 +2263,16 @@ def main() -> int:
                 f"{cfg['registers']} registers, {cfg['blocks_per_sm']} "
                 "blocks an SM")
 
-    log("phase 3: K1 against its plain version")
+    header("phase 3: K1 against its plain version")
     stages, max_err = phase_kernel_vs_plain()
 
-    log("phase 4: serving path (cli.evaluate, medmamba_t 224^2 batch 64)")
+    header("phase 4: serving path (cli.evaluate, medmamba_t 224^2 batch 64)")
     os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
     # kept to phase 21, which exports its checkpoint
     serve_dir = tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR)
     model, launches, eval_wall = phase_main_path(serve_dir.name)
 
-    log("phase 5: timing")
+    header("phase 5: timing")
     fwd_ms, img_s, prof_line = phase_timing(model)
     del model
     k1_device_ms = prof_line["family_ms_per_forward"].get(FAMILY["K1"], 0.0)
@@ -1976,7 +2297,7 @@ def main() -> int:
     log("stages " + json.dumps(stages))
     log("profile " + json.dumps(prof_line))
 
-    log("phase 6: K1 states and K2 against their plain versions")
+    header("phase 6: K1 states and K2 against their plain versions")
     bwd_stages, k2_err = phase_backward_vs_plain()
     per_step = per_pass(bwd_stages)
     earlier_ms = sum(K2_EARLIER_MS[s["stage"]] * s["launches"]
@@ -1988,19 +2309,19 @@ def main() -> int:
         f"{per_step['ops_ms']:.4f}); exp units {per_step['exp_ms']:.4f} ms; "
         f"plain {per_step['plain_ms']:.1f} ms")
 
-    log("phase 7: K5 against its plain version")
+    header("phase 7: K5 against its plain version")
     rot = phase_rotate_vs_plain()
 
-    log("phase 8: training path (cli.train, medmamba_t 224^2 batch 64, "
+    header("phase 8: training path (cli.train, medmamba_t 224^2 batch 64, "
         "bf16 blocks, augmentation)")
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         train_counts, train_steps = phase_train_path(root)
 
-    log("phase 9: model gradients through K2 against its plain version, "
+    header("phase 9: model gradients through K2 against its plain version, "
         "and through K1 + K2 against the plain scan")
     grad_err, grad_err_plain_scan = phase_gradients()
 
-    log("phase 10: train-step timing")
+    header("phase 10: train-step timing")
     train_timing, train_prof = phase_train_timing()
     fam = train_prof["family_ms_per_step"]
     log("train_steps " + json.dumps(train_timing))
@@ -2008,7 +2329,7 @@ def main() -> int:
     log("k2_stages " + json.dumps(bwd_stages))
     log("k5 " + json.dumps(rot))
 
-    log("phase 11: K3 (hillis forward) against its plain version")
+    header("phase 11: K3 (hillis forward) against its plain version")
     k3_stages, k3_err = phase_hillis_fwd_vs_plain()
     k3 = per_pass(k3_stages)
     k3_earlier = sum(K3_EARLIER_MS[s["stage"]] * s["launches"]
@@ -2019,7 +2340,7 @@ def main() -> int:
         f"{k3['bytes_ms']:.4f}, fp32 ops needed {k3['ops_ms']:.4f}); exp "
         f"units {k3['exp_ms']:.4f} ms; plain {k3['plain_ms']:.1f} ms")
 
-    log("phase 12: K4 (hillis backward) against its plain version")
+    header("phase 12: K4 (hillis backward) against its plain version")
     k4_stages, k4_err = phase_hillis_bwd_vs_plain()
     k4 = per_pass(k4_stages)
     k4_earlier = sum(K4_EARLIER_MS[s["stage"]] * s["launches"]
@@ -2030,21 +2351,21 @@ def main() -> int:
         f"{k4['bytes_ms']:.4f}, fp32 ops needed {k4['ops_ms']:.4f}); exp "
         f"units {k4['exp_ms']:.4f} ms; plain {k4['plain_ms']:.1f} ms")
 
-    log("phase 13: serving path under MEDMAMBA_SCAN_KERNEL=hillis "
+    header("phase 13: serving path under MEDMAMBA_SCAN_KERNEL=hillis "
         "(cli.evaluate, medmamba_t 224^2 batch 64)")
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         model, hillis_eval_counts = phase_hillis_serving(root)
 
-    log("phase 14: training path under hillis (cli.train, medmamba_t 224^2 "
+    header("phase 14: training path under hillis (cli.train, medmamba_t 224^2 "
         "batch 64, bf16 blocks, augmentation)")
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root, \
             scan_kernel("hillis"):
         hillis_counts, _ = phase_train_path(root, "K3", "K4")
 
-    log("phase 15: model gradients through K4 against its plain version")
+    header("phase 15: model gradients through K4 against its plain version")
     hillis_grad_err = phase_hillis_gradients()
 
-    log("phase 16: timing under hillis")
+    header("phase 16: timing under hillis")
     with scan_kernel("hillis"):
         h_fwd_ms, h_img_s, h_prof = phase_timing(model)
         del model
@@ -2062,29 +2383,56 @@ def main() -> int:
     log("k3_stages " + json.dumps(k3_stages))
     log("k4_stages " + json.dumps(k4_stages))
 
-    log("phase 17: P1 (issue-rate probe) against its plain version, timed")
+    header("phase 17: P1 (issue-rate probe) against its plain version, timed")
     p1_rows, p1_launches = phase_probe_vpu()
     p1 = sum_rows(p1_rows)
     log("p1 " + json.dumps(p1_rows))
 
-    log("phase 18: P2 (relayout probes) against their plain versions")
+    header("phase 18: P2 (relayout probes) against their plain versions")
     p2_rows, p2_launches, p2_floor = phase_probe_mosaic()
     p2 = sum_rows(p2_rows)
     log("p2 " + json.dumps(p2_rows))
 
-    log("phase 19: cli.evaluate on a class-folder PNG tree, and Grad-CAM "
+    header("phase 19: cli.evaluate on a class-folder PNG tree, and Grad-CAM "
         "through cli.test (medmamba_t 224^2)")
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         tree, pth, cams = phase_gradcam(root)
 
-        log("phase 20: the demo server (cli.demo, medmamba_t 224^2)")
+        header("phase 20: the demo server (cli.demo, medmamba_t 224^2)")
         demo_out = phase_demo(tree, pth)
 
-    log("phase 21: serving export (cli.export, medmamba_t 224^2, symbolic "
+    header("phase 21: serving export (cli.export, medmamba_t 224^2, symbolic "
         "batch), loaded in a fresh process")
     export_out = phase_export(serve_dir.name, os.path.join(
         serve_dir.name, "medmamba_t.pth"))
     serve_dir.cleanup()
+
+    header("phase 22: the bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE="
+           "bfloat16): K1-K4 against their plain versions in the mode")
+    bf16_rows, bf16_err = phase_bf16_kernels()
+    bf16 = {}
+    for k, rows in bf16_rows.items():
+        bf16[k] = dict(per_pass(rows), ms_fp32=sum(
+            r["ms_fp32"] * r["launches"] for r in rows))
+        bf16[k]["max_abs_err"] = bf16_err[k]
+        log(f"  {k} per {'forward' if k in ('K1', 'K3') else 'step'} "
+            f"({LAUNCHES_PER_FORWARD} launches) in the mode: "
+            f"{bf16[k]['ms']:.4f} ms, float32 {bf16[k]['ms_fp32']:.4f} ms "
+            f"in turns; bound {bf16[k]['bound_ms']:.4f} ms; plain "
+            f"{bf16[k]['plain_ms']:.1f} ms")
+    log("bf16_stages " + json.dumps(bf16_rows))
+    header("phase 22: the main paths in the bfloat16 compute mode (cli.train, "
+           "cli.evaluate, logits and loss against float32, timing)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        bf16_model = phase_bf16_model(root)
+    bf16["K1"]["launches"] = bf16_model["ssd"]["train_counts"]["K1"]
+    bf16["K2"]["launches"] = bf16_model["ssd"]["train_counts"]["K2"]
+    bf16["K3"]["launches"] = bf16_model["hillis"]["train_counts"]["K3"]
+    bf16["K4"]["launches"] = bf16_model["hillis"]["train_counts"]["K4"]
+    log("bf16_profiles " + json.dumps(
+        {k: {"eval": v["eval_profile"], "train": v["train_profile"]}
+         for k, v in bf16_model.items()}))
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -2102,7 +2450,7 @@ def main() -> int:
         "profiled_ms_per_train_step": fam.get(FAMILY["K1"], 0.0),
         "ms_per_forward_batch1": k1_b1["ms_batch1"],
         "device_ms_per_forward_batch1": k1_b1["device_ms_batch1"],
-        "eval_img_s": img_s}, {
+        "eval_img_s": img_s, "bf16_compute": bf16["K1"]}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
@@ -2114,7 +2462,8 @@ def main() -> int:
         "library_ms": None,
         "profiled_ms_per_train_step": fam.get(FAMILY["K2"], 0.0),
         "model_grad_rel_err": grad_err,
-        "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan}, {
+        "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan,
+        "bf16_compute": bf16["K2"]}, {
         "name": "rotate_flip", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
         "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
@@ -2139,7 +2488,7 @@ def main() -> int:
         "profiled_ms_per_forward": h_prof["family_ms_per_forward"].get(
             FAMILY["K3"], 0.0),
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K3"], 0.0),
-        "eval_img_s": h_img_s}, {
+        "eval_img_s": h_img_s, "bf16_compute": bf16["K3"]}, {
         "name": "selective_scan_hillis_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1275",
@@ -2149,7 +2498,8 @@ def main() -> int:
         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
         "library_ms": None,
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
-        "model_grad_rel_err": hillis_grad_err}, {
+        "model_grad_rel_err": hillis_grad_err,
+        "bf16_compute": bf16["K4"]}, {
         "name": "probe_vpu", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/probe_vpu.cu",
         "replaces": "tools/probe_vpu.py:21",
@@ -2179,7 +2529,11 @@ def main() -> int:
         "demo": demo_out,
         "export": export_out,
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
-        "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()}}))
+        "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()},
+        "bf16_compute": {scan: {k: v[k] for k in (
+            "eval_ms", "eval_img_s", "eval_ms_fp32", "eval_img_s_fp32",
+            "train_ms", "train_img_s", "train_ms_fp32", "train_img_s_fp32",
+            "logits_rel_err", "loss")} for scan, v in bf16_model.items()}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

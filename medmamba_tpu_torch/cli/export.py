@@ -17,7 +17,8 @@ symbolic batch.
 The JAX CLI's ``--platforms`` and ``--scan_impl`` choose between a portable
 XLA scan and the TPU kernel; here the artifact always holds the scan op,
 which runs K1 on the card, or K3 when ``MEDMAMBA_SCAN_KERNEL=hillis`` is set
-while exporting, and the plain scan for ``--device cpu``. The artifact runs
+while exporting, in the compute mode ``MEDMAMBA_SCAN_COMPUTE`` gives while
+exporting, and the plain scan for ``--device cpu``. The artifact runs
 on the device it was exported on: ``--device cuda`` (the default; raises
 without a card) or ``cpu``.
 """
@@ -58,8 +59,11 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    import torch
+
     from medmamba_tpu_torch.models import registry
-    from medmamba_tpu_torch.ops.selective_scan import _kernel_impl
+    from medmamba_tpu_torch.ops.selective_scan import (_compute_mode,
+                                                       _kernel_impl)
     from medmamba_tpu_torch.train.checkpoint import restore_params
     from medmamba_tpu_torch.utils.device import resolve_device
     from medmamba_tpu_torch.utils.export import export_forward
@@ -80,10 +84,11 @@ def main(argv=None):
         f.write(blob)
     kernel = ("plain scan" if device.type == "cpu"
               else {"ssd": "K1", "hillis": "K3"}[_kernel_impl()])
+    compute = _compute_mode(torch.empty(0, device=device))
     print(f"exported {len(blob) / 1e6:.1f} MB serving artifact to {args.out} "
           f"(medmamba_{args.medmb_size.lower()}, "
           f"batch={'symbolic' if args.batch == 'poly' else args.batch}, "
-          f"device={device}, scan kernel {kernel})")
+          f"device={device}, scan kernel {kernel}, compute {compute})")
 
 
 if __name__ == "__main__":

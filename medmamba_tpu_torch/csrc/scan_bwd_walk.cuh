@@ -37,6 +37,16 @@
 //  * dA, dD and dbias: summed over the block's tiles in registers, written
 //    as one partial per (b, d) and added over b by reduce_partials.
 //
+// Compute modes (MEDMAMBA_SCAN_COMPUTE, a template parameter of the walk;
+// the TPU kernels read it in pallas_scan.py:85-95). The recompute rounds as
+// the forward's mode did (scan_fwd_walk.cuh): in kBf16 (K2's) the decay and
+// the input rounded to bfloat16, from dt u and B rounded; in kBf16State
+// (K4's) the state h too, each step. B and C are read rounded everywhere
+// in both modes, and q = C gy is rounded from gy rounded (as _part_bwd's
+// and _bwd_kernel's bf16 q); in kBf16State the adjoint dh is rounded each
+// step as well (as _bwd_kernel's bf16 dh). The carry a dh, which leaves a
+// tile and a chunk, every sum and every gradient stay float32.
+//
 // No output is written with an atomic, so every output is the same bits on
 // every run. The walk is written inline in one function that the kernels
 // call with __forceinline__: a walk split into a function taking a struct
@@ -63,6 +73,9 @@ constexpr int kXP = kT + 1;             // pitch of the per-channel float4s
 constexpr int kW = 2 * kN;              // dB and dC sums of one step: 32
 constexpr int kRP = kW + 1;             // padded pitch of a reduction row
 constexpr unsigned kAll = 0xffffffffu;
+
+// compute modes, the C entry points' `compute` argument (0 or 1) picks one
+enum Compute { kFp32 = 0, kBf16 = 1, kBf16State = 2 };
 
 struct Params {
   const void* u;
@@ -105,6 +118,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// x rounded to the nearest bfloat16 (ties to even), back in a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// v[0, 4) rounded to bfloat16 in place, two values a conversion
+__device__ __forceinline__ void bf16r4(float* v) {
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[i], v[i + 1]);
+    v[i] = __low2float(p);
+    v[i + 1] = __high2float(p);
+  }
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -116,6 +144,26 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
 
 __device__ __forceinline__ float get(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// One step of a lane's kNS states in a bfloat16 mode: a = exp(dt A) and
+// b = dtu_r B rounded (dtu_r is dt u rounded, bq the step's rounded B), then
+// h = a h + b, rounded too in kBf16State; a is left in `a`.
+template <int kMode>
+__device__ __forceinline__ void step_bf16(float* h, float* a, float dt,
+                                          float dtu_r, const float4& bq,
+                                          const float* a_n) {
+  float in[kNS];
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) {
+    a[i] = expf(dt * a_n[i]);
+    in[i] = dtu_r * get(bq, i);
+  }
+  bf16r4(a);
+  bf16r4(in);
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) h[i] = a[i] * h[i] + in[i];
+  if constexpr (kMode == kBf16State) bf16r4(h);
 }
 
 // One level of the reduce-scatter over a warp's channels: lanes kHalf * 4
@@ -144,7 +192,8 @@ __device__ __forceinline__ int step_slot(int j, int len, bool rev) {
 
 // The walk of one block (grid: n_cb, groups, batch; kThreads threads; a
 // dynamic Smem). Tin: u, delta, B, C and the gradients du, ddelta. Tg: gy.
-template <typename Tin, typename Tg>
+// kMode: the compute mode.
+template <typename Tin, typename Tg, int kMode>
 __device__ __forceinline__ void walk(const Params& p) {
   extern __shared__ float4 smem_raw[];
   Smem& s = *reinterpret_cast<Smem*>(smem_raw);
@@ -244,6 +293,10 @@ __device__ __forceinline__ void walk(const Params& p) {
           cv[j] = to_f(C_base[off]);
         }
       }
+      if constexpr (sizeof(Tin) == 4 && kMode != kFp32) {
+        bf16r4(bv);
+        bf16r4(cv);
+      }
       s.B[tt][qq] = make_float4(bv[0], bv[1], bv[2], bv[3]);
       s.C[tt][qq] = make_float4(cv[0], cv[1], cv[2], cv[3]);
     }
@@ -261,9 +314,14 @@ __device__ __forceinline__ void walk(const Params& p) {
         const float4 xv = s.x[lc][tt];
         const float4 bq = s.B[tt][q];
         const float dtu = xv.x * xv.y;
+        if constexpr (kMode == kFp32) {
 #pragma unroll
-        for (int i = 0; i < kNS; ++i) {
-          h[i] = expf(xv.x * a_n[i]) * h[i] + dtu * get(bq, i);
+          for (int i = 0; i < kNS; ++i) {
+            h[i] = expf(xv.x * a_n[i]) * h[i] + dtu * get(bq, i);
+          }
+        } else {
+          float a[kNS];
+          step_bf16<kMode>(h, a, xv.x, bf16r(dtu), bq, a_n);
         }
       }
       h4 = make_float4(h[0], h[1], h[2], h[3]);
@@ -285,12 +343,18 @@ __device__ __forceinline__ void walk(const Params& p) {
           const float4 xv = s.x[lc][tt];
           const float4 bq = s.B[tt][q];
           const float dtu = xv.x * xv.y;
+          if constexpr (kMode == kFp32) {
 #pragma unroll
-          for (int i = 0; i < kNS; ++i) {
-            const float a = expf(xv.x * a_n[i]);
-            hp[jj][i] = h[i];
-            ap[jj][i] = a;
-            h[i] = a * h[i] + dtu * get(bq, i);
+            for (int i = 0; i < kNS; ++i) {
+              const float a = expf(xv.x * a_n[i]);
+              hp[jj][i] = h[i];
+              ap[jj][i] = a;
+              h[i] = a * h[i] + dtu * get(bq, i);
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < kNS; ++i) hp[jj][i] = h[i];
+            step_bf16<kMode>(h, ap[jj], xv.x, bf16r(dtu), bq, a_n);
           }
         }
       }
@@ -308,13 +372,26 @@ __device__ __forceinline__ void walk(const Params& p) {
         float sum_b = 0.f;   // sum over the lane's states of dh * B
         float sum_q = 0.f;   // ... of dh * h_{t-1} * a_t * A
         float v[2 * kNS];    // dB, dC of the lane's states
+        // dt u and gy rounded, for the modes' b and q
+        const float dtu_r = kMode == kFp32 ? 0.f : bf16r(dtu);
+        const float gv_r = kMode == kFp32 ? 0.f : bf16r(gv);
 #pragma unroll
         for (int i = 0; i < kNS; ++i) {
           const float a = ap[jj][i];
           const float bv = get(bq, i);
           const float ha = hp[jj][i] * a;
-          const float h_t = ha + dtu * bv;
-          const float dh = get(cq, i) * gv + carry[i];
+          float h_t, dh;
+          if constexpr (kMode == kFp32) {
+            h_t = ha + dtu * bv;
+            dh = get(cq, i) * gv + carry[i];
+          } else {
+            h_t = ha + bf16r(dtu_r * bv);
+            dh = bf16r(get(cq, i) * gv_r) + carry[i];
+            if constexpr (kMode == kBf16State) {
+              h_t = bf16r(h_t);
+              dh = bf16r(dh);
+            }
+          }
           carry[i] = a * dh;
           const float qd = dh * ha;
           acc_dA[i] += qd * dt;

@@ -12,6 +12,21 @@
 // The walk is written inline in one function that the kernels call with
 // __forceinline__, taking the kernel's parameters: a walk split into a
 // function taking a struct of its state ran 2.4x slower on an H100 (K2's).
+//
+// Compute modes (MEDMAMBA_SCAN_COMPUTE, a template parameter of the walk;
+// the TPU kernels read it in pallas_scan.py:85-95):
+//  * kFp32: the exact float32 recurrence;
+//  * kBf16 (K1's bfloat16 mode): the decay a = exp(dt A) and the input
+//    b = (dt u) B rounded to bfloat16, from dt u and B rounded; the state h
+//    and y's sum float32 (as _ssd_forward_core's bf16 E and dub);
+//  * kBf16State (K3's): as kBf16, and the state rounded to bfloat16 each
+//    step, y summed in float32 from h C rounded, C rounded (as _fwd_kernel's
+//    bf16 a, dbu, h and h C).
+// Exponents, softplus, D u and every sum stay float32. A rounding is
+// float32 arithmetic followed by one round-to-nearest-even to bfloat16;
+// where both factors of a product are bfloat16 values (a h, h C) the
+// product is exact in float32, so a fused multiply-add and a multiply then
+// an add round alike, and the plain versions can repeat the kernel's bits.
 
 #pragma once
 
@@ -38,6 +53,9 @@ constexpr int kNarrowQ = 16;           // lanes per channel, 8-channel blocks
 constexpr int kMinBlocksWide = 3;      // blocks an SM the registers leave room for
 constexpr int kMinBlocksNarrow = 4;
 constexpr int kWalkSteps = 8;          // steps per group of the walk (wide)
+
+// compute modes, the C entry points' `compute` argument (0 or 1) picks one
+enum Compute { kFp32 = 0, kBf16 = 1, kBf16State = 2 };
 
 struct Params {
   const void* u;
@@ -77,6 +95,23 @@ struct Smem {
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// x rounded to the nearest bfloat16 (ties to even), back in a float
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// v[0, kNS) rounded to bfloat16 in place, two values a conversion
+template <int kNS>
+__device__ __forceinline__ void bf16r_all(float* v) {
+#pragma unroll
+  for (int i = 0; i + 1 < kNS; i += 2) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(v[i], v[i + 1]);
+    v[i] = __low2float(p);
+    v[i + 1] = __high2float(p);
+  }
+  if constexpr (kNS % 2 == 1) v[kNS - 1] = bf16r(v[kNS - 1]);
 }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -242,8 +277,8 @@ __device__ __forceinline__ void stage_tile(
 // The walk of one block (grid: channel blocks of kThreads / kQ channels,
 // groups, batch; kThreads threads; a dynamic Smem<Tin, kThreads / kQ>). Tin:
 // u, delta, B, C. Tout: y. kQ lanes per channel (4 or 16). kSpan: tiles per
-// saved state.
-template <typename Tin, typename Tout, int kQ, int kSpan>
+// saved state. kMode: the compute mode.
+template <typename Tin, typename Tout, int kQ, int kSpan, int kMode>
 __device__ __forceinline__ void walk(const Params& p) {
   constexpr int kCh = kThreads / kQ;   // channels per block
   constexpr int kNS = kN / kQ;         // states per lane
@@ -320,6 +355,7 @@ __device__ __forceinline__ void walk(const Params& p) {
         if (t0 + tt < p.valid_len) {   // else pad: decay 1, inject 0
           dt = dv;
           dtu = dv * uv;
+          if constexpr (kMode != kFp32) dtu = bf16r(dtu);
         }
         y0 = s.d_skip[cc] * uv;
       }
@@ -338,6 +374,10 @@ __device__ __forceinline__ void walk(const Params& p) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         v[j] = to_f(src[j * kRP + row_shift(base + (size_t)j * L)]);
+      }
+      // B in both bfloat16 modes, C where y sums h C rounded
+      if constexpr (sizeof(Tin) == 4 && kMode != kFp32) {
+        if (kMode == kBf16State || !is_c) bf16r_all<4>(v);
       }
       *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
     }
@@ -365,10 +405,35 @@ __device__ __forceinline__ void walk(const Params& p) {
         Vec<kNS>::load(&s.B[tt][kNS * q], bq);
         Vec<kNS>::load(&s.C[tt][kNS * q], cq);
         float acc = 0.f;
+        if constexpr (kMode == kFp32) {
 #pragma unroll
-        for (int i = 0; i < kNS; ++i) {
-          h[i] = expf(xv.x * a_n[i]) * h[i] + xv.y * bq[i];
-          acc += h[i] * cq[i];
+          for (int i = 0; i < kNS; ++i) {
+            h[i] = expf(xv.x * a_n[i]) * h[i] + xv.y * bq[i];
+            acc += h[i] * cq[i];
+          }
+        } else {
+          float a[kNS], in[kNS];
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) {
+            a[i] = expf(xv.x * a_n[i]);
+            in[i] = xv.y * bq[i];
+          }
+          bf16r_all<kNS>(a);
+          bf16r_all<kNS>(in);
+#pragma unroll
+          for (int i = 0; i < kNS; ++i) h[i] = a[i] * h[i] + in[i];
+          if constexpr (kMode == kBf16State) {
+            float hc[kNS];
+            bf16r_all<kNS>(h);
+#pragma unroll
+            for (int i = 0; i < kNS; ++i) hc[i] = h[i] * cq[i];
+            bf16r_all<kNS>(hc);
+#pragma unroll
+            for (int i = 0; i < kNS; ++i) acc += hc[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < kNS; ++i) acc += h[i] * cq[i];
+          }
         }
         v[jj] = acc;
       }

@@ -45,6 +45,16 @@
 // per-block partials. A second kernel, scan_bwd_reduce_kernel, launched
 // right after by the same entry point, adds the partials in a fixed order.
 //
+// The bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16; the TPU kernel
+// reads it in _part_bwd, which recomputes the forward's bf16 cubes and
+// forms q = C gy in bfloat16): the walk recomputes the states as K1's mode
+// computed them and rounds q from C and gy rounded; B and C are read
+// rounded; dh, the carry and every sum stay float32 (scan_bwd_walk.cuh,
+// kBf16). Each kernel is compiled for both modes; the float32
+// instantiations are the code the kernel had before the mode. On an NVIDIA
+// H100 80GB HBM3, 700.00 W, the mode ran 22.18 ms a step against 19.04 in
+// float32, in turns (PERF.md section 6 names the script), at 167 registers.
+//
 // No output is written with an atomic, so every output is the same bits on
 // every run.
 
@@ -54,10 +64,10 @@ namespace {
 
 // At most 168 registers, so that 3 blocks fit an SM: medmamba_t's first
 // stage (384 blocks) then runs in one wave of 396 slots.
-template <typename Tin, typename Tg>
+template <typename Tin, typename Tg, int kMode>
 __global__ void __launch_bounds__(kThreads, 3)
 scan_bwd_kernel(const Params p) {
-  walk<Tin, Tg>(p);
+  walk<Tin, Tg, kMode>(p);
 }
 
 __global__ void __launch_bounds__(kReduceThreads)
@@ -66,15 +76,23 @@ scan_bwd_reduce_kernel(const Params p, int batch, float* dA, float* dB,
   reduce_partials(p, batch, dA, dB, dC, dD, dbias);
 }
 
-template <typename Tin, typename Tg>
+template <typename Tin, typename Tg, int kMode>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      scan_bwd_kernel<Tin, Tg>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sizeof(Smem));
+      scan_bwd_kernel<Tin, Tg, kMode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(p.n_cb, p.groups, batch);
-  scan_bwd_kernel<Tin, Tg><<<grid, kThreads, sizeof(Smem), stream>>>(p);
+  scan_bwd_kernel<Tin, Tg, kMode><<<grid, kThreads, sizeof(Smem), stream>>>(
+      p);
   return cudaGetLastError();
+}
+
+template <typename Tin, typename Tg>
+cudaError_t launch(const Params& p, int batch, int compute,
+                   cudaStream_t stream) {
+  return compute == 0 ? launch<Tin, Tg, kFp32>(p, batch, stream)
+                      : launch<Tin, Tg, kBf16>(p, batch, stream);
 }
 
 }  // namespace
@@ -87,7 +105,8 @@ extern "C" void medmamba_selective_scan_bwd_workspace(
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16; in_dtype is that of u, delta, B, C
-// (and of du and ddelta), gy_dtype that of gy. dA, dB, dC, dD and dbias are
+// (and of du and ddelta), gy_dtype that of gy; compute: 0 = float32, 1 = the
+// bfloat16 mode of the forward. dA, dB, dC, dD and dbias are
 // float32 outputs (dD and dbias may be null), each written whole, as are
 // the four float32 workspaces of the sizes
 // medmamba_selective_scan_bwd_workspace gives. Launches the scan kernel and
@@ -101,11 +120,11 @@ extern "C" int medmamba_selective_scan_bwd(
     void* dD, void* dbias, void* ws_bc, void* ws_a, void* ws_d,
     void* ws_bias, int batch, int groups, int u_groups, int dpg, int n_state,
     int L, int valid_len, int softplus, int rev_mask, int in_dtype,
-    int gy_dtype, void* stream) {
+    int gy_dtype, int compute, void* stream) {
   if (n_state != kN || batch < 1 || groups < 1 || groups > 30 ||
       u_groups < 1 || groups % u_groups != 0 || dpg < 1 || L < 1 ||
       batch > 65535 || in_dtype < 0 || in_dtype > 1 || gy_dtype < 0 ||
-      gy_dtype > 1 || states == nullptr || ws_bc == nullptr ||
+      gy_dtype > 1 || compute < 0 || compute > 1 || states == nullptr || ws_bc == nullptr ||
       ws_a == nullptr || ws_d == nullptr || ws_bias == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
@@ -137,13 +156,13 @@ extern "C" int medmamba_selective_scan_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (in_dtype == 0 && gy_dtype == 0) {
-    e = launch<float, float>(p, batch, s);
+    e = launch<float, float>(p, batch, compute, s);
   } else if (in_dtype == 0) {
-    e = launch<float, __nv_bfloat16>(p, batch, s);
+    e = launch<float, __nv_bfloat16>(p, batch, compute, s);
   } else if (gy_dtype == 0) {
-    e = launch<__nv_bfloat16, float>(p, batch, s);
+    e = launch<__nv_bfloat16, float>(p, batch, compute, s);
   } else {
-    e = launch<__nv_bfloat16, __nv_bfloat16>(p, batch, s);
+    e = launch<__nv_bfloat16, __nv_bfloat16>(p, batch, compute, s);
   }
   if (e != cudaSuccess) return (int)e;
   scan_bwd_reduce_kernel<<<reduce_blocks(batch, groups, dpg, L),

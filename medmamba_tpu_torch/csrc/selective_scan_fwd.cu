@@ -62,6 +62,17 @@
 //    16, one state a lane): four times as many blocks, a quarter of the
 //    chain per lane. medmamba_selective_scan_fwd_config says which.
 //
+// The bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16; the TPU kernel
+// reads it in _ssd_core_compact and _ssd_forward_core, which compute their
+// decay and input cubes E, F, dub and w in bfloat16): the walk rounds each
+// step's decay exp(dt A) and input (dt u) B to bfloat16, from dt u and B
+// rounded, and keeps the state, y's sum and the saved states float32
+// (scan_fwd_walk.cuh). Each kernel is compiled for both modes; the float32
+// instantiations are the code the kernel had before the mode. The mode only
+// adds work (a conversion and an unpack a rounding): on an NVIDIA H100 80GB
+// HBM3, 700.00 W, 6.51 ms a forward against 5.59 in float32, in turns
+// (PERF.md section 6 names the script).
+//
 // With a non-null `states` the kernel also writes the float32 state at the
 // entry of every 64-step tile, (b, G*dpg, n_tiles, 16) in processing order
 // (tile k is the k-th tile the group's direction visits), as the TPU forward
@@ -88,42 +99,49 @@
 
 namespace {
 
-// Tin: u, delta, B, C. Tout: y. kQ lanes per channel (4 or 16). Every
-// tile's entry state is saved.
-template <typename Tin, typename Tout, int kQ>
+// Tin: u, delta, B, C. Tout: y. kQ lanes per channel (4 or 16). kMode:
+// kFp32 or kBf16. Every tile's entry state is saved.
+template <typename Tin, typename Tout, int kQ, int kMode>
 __global__ void __launch_bounds__(kThreads, kQ == kWideQ ? kMinBlocksWide
                                                          : kMinBlocksNarrow)
 scan_fwd_kernel(const Params p) {
-  walk<Tin, Tout, kQ, 1>(p);
+  walk<Tin, Tout, kQ, 1, kMode>(p);
+}
+
+template <typename Tin, typename Tout, int kMode>
+cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
+  if (use_wide(batch, p.groups, p.dpg)) {
+    return launch_walk<Tin, kWideQ>(
+        scan_fwd_kernel<Tin, Tout, kWideQ, kMode>, p, batch, stream);
+  }
+  return launch_walk<Tin, kNarrowQ>(
+      scan_fwd_kernel<Tin, Tout, kNarrowQ, kMode>, p, batch, stream);
 }
 
 template <typename Tin, typename Tout>
-cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
-  if (use_wide(batch, p.groups, p.dpg)) {
-    return launch_walk<Tin, kWideQ>(scan_fwd_kernel<Tin, Tout, kWideQ>, p,
-                                    batch, stream);
-  }
-  return launch_walk<Tin, kNarrowQ>(scan_fwd_kernel<Tin, Tout, kNarrowQ>, p,
-                                    batch, stream);
+cudaError_t dispatch(const Params& p, int batch, int compute,
+                     cudaStream_t stream) {
+  return compute == 0 ? dispatch<Tin, Tout, kFp32>(p, batch, stream)
+                      : dispatch<Tin, Tout, kBf16>(p, batch, stream);
 }
 
 // channels per block, dynamic shared memory, registers per thread and
 // resident blocks an SM of one instantiation
-template <typename Tin, typename Tout, int kQ>
+template <typename Tin, typename Tout, int kQ, int kMode>
 cudaError_t config(int* info) {
   constexpr int kCh = kThreads / kQ;
   const int smem = (int)sizeof(Smem<Tin, kCh>);
   cudaError_t e = cudaFuncSetAttribute(
-      scan_fwd_kernel<Tin, Tout, kQ>,
+      scan_fwd_kernel<Tin, Tout, kQ, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaFuncAttributes attr;
   if (e == cudaSuccess) {
-    e = cudaFuncGetAttributes(&attr, scan_fwd_kernel<Tin, Tout, kQ>);
+    e = cudaFuncGetAttributes(&attr, scan_fwd_kernel<Tin, Tout, kQ, kMode>);
   }
   int blocks = 0;
   if (e == cudaSuccess) {
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, scan_fwd_kernel<Tin, Tout, kQ>, kThreads, smem);
+        &blocks, scan_fwd_kernel<Tin, Tout, kQ, kMode>, kThreads, smem);
   }
   info[0] = kCh;
   info[1] = smem;
@@ -133,26 +151,31 @@ cudaError_t config(int* info) {
 }
 
 template <typename Tin, typename Tout>
-cudaError_t config(bool wide, int* info) {
-  return wide ? config<Tin, Tout, kWideQ>(info)
-              : config<Tin, Tout, kNarrowQ>(info);
+cudaError_t config(bool wide, int compute, int* info) {
+  if (compute == 0) {
+    return wide ? config<Tin, Tout, kWideQ, kFp32>(info)
+                : config<Tin, Tout, kNarrowQ, kFp32>(info);
+  }
+  return wide ? config<Tin, Tout, kWideQ, kBf16>(info)
+              : config<Tin, Tout, kNarrowQ, kBf16>(info);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 when it was accepted), or cudaErrorInvalidValue for arguments the
-// kernel does not take. Launches on `stream` and does not synchronise.
+// dtype codes: 0 = float32, 1 = bfloat16; compute: 0 = float32, 1 = the
+// bfloat16 mode. Returns cudaGetLastError() after the launch (0 when it was
+// accepted), or cudaErrorInvalidValue for arguments the kernel does not take.
+// Launches on `stream` and does not synchronise.
 extern "C" int medmamba_selective_scan_fwd(
     const void* u, const void* delta, const void* A, const void* B,
     const void* C, const void* D, const void* bias, void* y, void* last,
     void* states, int batch, int groups, int u_groups, int dpg, int n_state, int L,
     int valid_len, int softplus, int rev_mask, int in_dtype, int out_dtype,
-    void* stream) {
+    int compute, void* stream) {
   if (n_state != kN || batch < 1 || groups < 1 || groups > 30 ||
       u_groups < 1 || groups % u_groups != 0 || dpg < 1 || L < 1 ||
       batch > 65535 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1) {
+      out_dtype < 0 || out_dtype > 1 || compute < 0 || compute > 1) {
     return (int)cudaErrorInvalidValue;
   }
   const Params p = make_params(u, delta, A, B, C, D, bias, y, last, states,
@@ -161,13 +184,13 @@ extern "C" int medmamba_selective_scan_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (in_dtype == 0 && out_dtype == 0) {
-    e = dispatch<float, float>(p, batch, s);
+    e = dispatch<float, float>(p, batch, compute, s);
   } else if (in_dtype == 0) {
-    e = dispatch<float, __nv_bfloat16>(p, batch, s);
+    e = dispatch<float, __nv_bfloat16>(p, batch, compute, s);
   } else if (out_dtype == 0) {
-    e = dispatch<__nv_bfloat16, float>(p, batch, s);
+    e = dispatch<__nv_bfloat16, float>(p, batch, compute, s);
   } else {
-    e = dispatch<__nv_bfloat16, __nv_bfloat16>(p, batch, s);
+    e = dispatch<__nv_bfloat16, __nv_bfloat16>(p, batch, compute, s);
   }
   return (int)e;
 }
@@ -176,16 +199,20 @@ extern "C" int medmamba_selective_scan_fwd(
 // info[1] bytes of dynamic shared memory a block, info[2] registers a thread,
 // info[3] blocks an SM can hold. Returns a CUDA error code (0 on success).
 extern "C" int medmamba_selective_scan_fwd_config(
-    int batch, int groups, int dpg, int in_dtype, int out_dtype, int* info) {
+    int batch, int groups, int dpg, int in_dtype, int out_dtype, int compute,
+    int* info) {
   if (batch < 1 || groups < 1 || dpg < 1 || in_dtype < 0 || in_dtype > 1 ||
-      out_dtype < 0 || out_dtype > 1 || info == nullptr) {
+      out_dtype < 0 || out_dtype > 1 || compute < 0 || compute > 1 ||
+      info == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const bool wide = use_wide(batch, groups, dpg);
-  if (in_dtype == 0 && out_dtype == 0) return config<float, float>(wide, info);
-  if (in_dtype == 0) return config<float, __nv_bfloat16>(wide, info);
-  if (out_dtype == 0) return config<__nv_bfloat16, float>(wide, info);
-  return config<__nv_bfloat16, __nv_bfloat16>(wide, info);
+  if (in_dtype == 0 && out_dtype == 0) {
+    return config<float, float>(wide, compute, info);
+  }
+  if (in_dtype == 0) return config<float, __nv_bfloat16>(wide, compute, info);
+  if (out_dtype == 0) return config<__nv_bfloat16, float>(wide, compute, info);
+  return config<__nv_bfloat16, __nv_bfloat16>(wide, compute, info);
 }
 
 extern "C" const char* medmamba_cuda_error_string(int code) {

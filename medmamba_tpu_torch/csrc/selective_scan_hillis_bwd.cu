@@ -53,6 +53,17 @@
 //     flipped reverse groups), gy masked past valid_len.
 //  3. hillis_bwd_reduce_kernel: the partials added in a fixed order.
 //
+// The bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16; the TPU kernel's
+// _bwd_kernel recomputes its bf16 h and scans a bf16 dh from a bf16 q): the
+// expansion kernel and the walk recompute the states exactly as K3's mode
+// computed them (the decay and input rounded, the state rounded each step),
+// q is rounded from C and gy rounded, and dh is carried rounded each step;
+// the carry a dh that leaves a tile and every sum stay float32
+// (scan_bwd_walk.cuh, kBf16State). The float32 instantiations are the code
+// the kernels had before the mode. On an NVIDIA H100 80GB HBM3, 700.00 W,
+// the mode ran 26.69 ms a step against 21.04 in float32, in turns (PERF.md
+// section 6 names the script).
+//
 // No output is written with an atomic, so every output is the same bits on
 // every run.
 
@@ -63,7 +74,7 @@ namespace {
 constexpr int kChunk = 128;            // K3's chunk: one saved state each
 static_assert(kChunk == 2 * kT, "a chunk is two of the walk's tiles");
 
-template <typename Tin>
+template <typename Tin, int kMode>
 __global__ void __launch_bounds__(kThreads)
 hillis_bwd_states_kernel(const Params p, const float* chunk_states,
                          float* tile_states) {
@@ -116,7 +127,8 @@ hillis_bwd_states_kernel(const Params p, const float* chunk_states,
       if (p.bias != nullptr) x += p.bias[d0 + cc];
       dv = p.softplus ? (x > 20.f ? x : log1pf(expf(x))) : x;
     }
-    s_x[cc][tt] = make_float2(dv, dv * uv);
+    // dt u rounded in the bfloat16 mode, as K3's walk stages it
+    s_x[cc][tt] = make_float2(dv, kMode == kFp32 ? dv * uv : bf16r(dv * uv));
   }
   for (int i = tid; i < kQ * kT; i += kThreads) {
     const int qq = i / kT;
@@ -126,6 +138,7 @@ hillis_bwd_states_kernel(const Params p, const float* chunk_states,
     for (int j = 0; j < kNS; ++j) {
       bv[j] = to_f(B_base[(size_t)(kNS * qq + j) * L + tt]);
     }
+    if constexpr (sizeof(Tin) == 4 && kMode != kFp32) bf16r4(bv);
     s_B[tt][qq] = make_float4(bv[0], bv[1], bv[2], bv[3]);
   }
   __syncthreads();
@@ -139,9 +152,14 @@ hillis_bwd_states_kernel(const Params p, const float* chunk_states,
   for (int tt = 0; tt < kT; ++tt) {
     const float2 xv = s_x[lc][tt];
     const float4 bq = s_B[tt][q];
+    if constexpr (kMode == kFp32) {
 #pragma unroll
-    for (int i = 0; i < kNS; ++i) {
-      h[i] = expf(xv.x * a_n[i]) * h[i] + xv.y * get(bq, i);
+      for (int i = 0; i < kNS; ++i) {
+        h[i] = expf(xv.x * a_n[i]) * h[i] + xv.y * get(bq, i);
+      }
+    } else {
+      float a[kNS];
+      step_bf16<kMode>(h, a, xv.x, xv.y, bq, a_n);
     }
   }
   reinterpret_cast<float4*>(tile_states + (dd * n_tiles + 2 * c + 1) * kN)[q] =
@@ -149,10 +167,10 @@ hillis_bwd_states_kernel(const Params p, const float* chunk_states,
 }
 
 // At most 168 registers, so that 3 blocks fit an SM, as K2's walk.
-template <typename Tin>
+template <typename Tin, int kMode>
 __global__ void __launch_bounds__(kThreads, 3)
 hillis_bwd_kernel(const Params p) {
-  walk<Tin, float>(p);
+  walk<Tin, float, kMode>(p);
 }
 
 __global__ void __launch_bounds__(kReduceThreads)
@@ -178,22 +196,32 @@ struct Workspace {
   }
 };
 
-template <typename Tin>
+template <typename Tin, int kMode>
 cudaError_t launch(const Params& p, const float* chunk_states,
                    float* tile_states, int batch, cudaStream_t stream) {
   const int n_chunks = (p.L + kChunk - 1) / kChunk;
-  hillis_bwd_states_kernel<Tin><<<dim3(p.n_cb * n_chunks, p.groups, batch),
-                                  kThreads, 0, stream>>>(p, chunk_states,
-                                                         tile_states);
+  hillis_bwd_states_kernel<Tin, kMode>
+      <<<dim3(p.n_cb * n_chunks, p.groups, batch), kThreads, 0, stream>>>(
+          p, chunk_states, tile_states);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(hillis_bwd_kernel<Tin>,
+  e = cudaFuncSetAttribute(hillis_bwd_kernel<Tin, kMode>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)sizeof(Smem));
   if (e != cudaSuccess) return e;
-  hillis_bwd_kernel<Tin><<<dim3(p.n_cb, p.groups, batch), kThreads,
-                           sizeof(Smem), stream>>>(p);
+  hillis_bwd_kernel<Tin, kMode><<<dim3(p.n_cb, p.groups, batch), kThreads,
+                                  sizeof(Smem), stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename Tin>
+cudaError_t launch(const Params& p, const float* chunk_states,
+                   float* tile_states, int batch, int compute,
+                   cudaStream_t stream) {
+  return compute == 0
+             ? launch<Tin, kFp32>(p, chunk_states, tile_states, batch, stream)
+             : launch<Tin, kBf16State>(p, chunk_states, tile_states, batch,
+                                       stream);
 }
 
 }  // namespace
@@ -205,7 +233,8 @@ extern "C" long long medmamba_selective_scan_hillis_bwd_workspace(
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16, for u, delta, B, C, du and ddelta;
-// gy is float32, as K3's y is; states are K3's chunk-entry states. dA, dB,
+// gy is float32, as K3's y is; states are K3's chunk-entry states; compute:
+// 0 = float32, 1 = the bfloat16 mode of the forward. dA, dB,
 // dC, dD and dbias are float32 outputs (dD and dbias may be null), each
 // written whole, as is the workspace of the size
 // medmamba_selective_scan_hillis_bwd_workspace gives (16-byte aligned).
@@ -218,11 +247,11 @@ extern "C" int medmamba_selective_scan_hillis_bwd(
     const void* gy, void* du, void* ddelta, void* dA, void* dB, void* dC,
     void* dD, void* dbias, void* workspace, int batch, int groups, int dpg,
     int n_state, int L, int valid_len, int softplus, int in_dtype,
-    void* stream) {
+    int compute, void* stream) {
   if (n_state != kN || batch < 1 || batch > 65535 || groups < 1 ||
       groups > 65535 || dpg < 1 || L < 1 || valid_len < 0 || valid_len > L ||
-      in_dtype < 0 || in_dtype > 1 || states == nullptr || gy == nullptr ||
-      workspace == nullptr) {
+      in_dtype < 0 || in_dtype > 1 || compute < 0 || compute > 1 ||
+      states == nullptr || gy == nullptr || workspace == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const Workspace ws(batch, groups, dpg, L);
@@ -255,8 +284,9 @@ extern "C" int medmamba_selective_scan_hillis_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* chunk_states = static_cast<const float*>(states);
   const cudaError_t e =
-      in_dtype == 0 ? launch<float>(p, chunk_states, w, batch, s)
-                    : launch<__nv_bfloat16>(p, chunk_states, w, batch, s);
+      in_dtype == 0
+          ? launch<float>(p, chunk_states, w, batch, compute, s)
+          : launch<__nv_bfloat16>(p, chunk_states, w, batch, compute, s);
   if (e != cudaSuccess) return (int)e;
   hillis_bwd_reduce_kernel<<<reduce_blocks(batch, groups, dpg, L),
                              kReduceThreads, 0, s>>>(

@@ -41,6 +41,16 @@
 // expf; no output is written with an atomic, so every output is the same
 // bits on every launch.
 //
+// The bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16, read by the TPU
+// kernel's _fwd_kernel, which scans its bf16 a and dbu into a bf16 h and
+// sums bf16 h C in float32): the walk rounds each step's decay and input as
+// K1's mode does, carries the state rounded to bfloat16 each step (one
+// rounding a fused step), and sums y in float32 from h C rounded, C rounded
+// (scan_fwd_walk.cuh, kBf16State). The saved chunk states and the last
+// state are those bfloat16 values, stored as float32. On an NVIDIA H100
+// 80GB HBM3, 700.00 W, the mode ran 7.30 ms a forward against 5.30 in
+// float32, in turns (PERF.md section 6 names the script).
+//
 // Measured on an NVIDIA H100 80GB HBM3, 700.00 W (nvidia-smi), float32,
 // batch 64, in one call beside the doubling kernel (PERF.md section 6 names
 // the script), ms per launch at stages 0-3: 0.5743 0.2967 0.1766 0.1096,
@@ -55,38 +65,47 @@ constexpr int kChunk = 128;            // one saved state each: K4 reads them
 static_assert(kChunk == 2 * kT, "a chunk is two of the walk's tiles");
 
 // Tin: u, delta, B, C; y is float32. kQ lanes per channel (4 or 16).
-template <typename Tin, int kQ>
+// kMode: kFp32 or kBf16State.
+template <typename Tin, int kQ, int kMode>
 __global__ void __launch_bounds__(kThreads, kQ == kWideQ ? kMinBlocksWide
                                                          : kMinBlocksNarrow)
 hillis_fwd_kernel(const Params p) {
-  walk<Tin, float, kQ, kChunk / kT>(p);
+  walk<Tin, float, kQ, kChunk / kT, kMode>(p);
+}
+
+template <typename Tin, int kMode>
+cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
+  if (use_wide(batch, p.groups, p.dpg)) {
+    return launch_walk<Tin, kWideQ>(hillis_fwd_kernel<Tin, kWideQ, kMode>, p,
+                                    batch, stream);
+  }
+  return launch_walk<Tin, kNarrowQ>(hillis_fwd_kernel<Tin, kNarrowQ, kMode>,
+                                    p, batch, stream);
 }
 
 template <typename Tin>
-cudaError_t dispatch(const Params& p, int batch, cudaStream_t stream) {
-  if (use_wide(batch, p.groups, p.dpg)) {
-    return launch_walk<Tin, kWideQ>(hillis_fwd_kernel<Tin, kWideQ>, p, batch,
-                                    stream);
-  }
-  return launch_walk<Tin, kNarrowQ>(hillis_fwd_kernel<Tin, kNarrowQ>, p,
-                                    batch, stream);
+cudaError_t dispatch(const Params& p, int batch, int compute,
+                     cudaStream_t stream) {
+  return compute == 0 ? dispatch<Tin, kFp32>(p, batch, stream)
+                      : dispatch<Tin, kBf16State>(p, batch, stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16, for u, delta, B and C; y, states and
-// last are float32. Returns cudaGetLastError() after the launch (0 when it was
-// accepted), or cudaErrorInvalidValue for arguments the kernel does not take.
-// Launches on `stream` and does not synchronise.
+// last are float32. compute: 0 = float32, 1 = the bfloat16 mode. Returns
+// cudaGetLastError() after the launch (0 when it was accepted), or
+// cudaErrorInvalidValue for arguments the kernel does not take. Launches on
+// `stream` and does not synchronise.
 extern "C" int medmamba_selective_scan_hillis_fwd(
     const void* u, const void* delta, const void* A, const void* B,
     const void* C, const void* D, const void* bias, void* y, void* states,
     void* last, int batch, int groups, int dpg, int n_state, int L,
-    int valid_len, int softplus, int in_dtype, void* stream) {
+    int valid_len, int softplus, int in_dtype, int compute, void* stream) {
   if (n_state != kN || batch < 1 || batch > 65535 || groups < 1 ||
       groups > 65535 || dpg < 1 || L < 1 || valid_len < 0 || valid_len > L ||
-      in_dtype < 0 || in_dtype > 1 || y == nullptr || states == nullptr ||
-      last == nullptr) {
+      in_dtype < 0 || in_dtype > 1 || compute < 0 || compute > 1 ||
+      y == nullptr || states == nullptr || last == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   // one u group per scan group, every group left to right
@@ -94,8 +113,9 @@ extern "C" int medmamba_selective_scan_hillis_fwd(
                                groups, groups, dpg, L, valid_len, softplus, 0,
                                in_dtype);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = in_dtype == 0 ? dispatch<float>(p, batch, s)
-                                      : dispatch<__nv_bfloat16>(p, batch, s);
+  const cudaError_t e =
+      in_dtype == 0 ? dispatch<float>(p, batch, compute, s)
+                    : dispatch<__nv_bfloat16>(p, batch, compute, s);
   return (int)e;
 }
 

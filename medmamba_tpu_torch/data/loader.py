@@ -82,7 +82,7 @@ class BatchLoader:
                     idx = order[i * self.batch_size:(i + 1) * self.batch_size]
                     if not put_checking_stop(self._materialize(idx)):
                         return
-            except Exception as e:  # surfaced to the consumer below
+            except BaseException as e:  # surfaced to the consumer below
                 put_checking_stop(e)
             else:
                 put_checking_stop(None)
@@ -94,7 +94,7 @@ class BatchLoader:
                 item = q.get()
                 if item is None:
                     return
-                if isinstance(item, Exception):
+                if isinstance(item, BaseException):
                     raise item
                 yield item
         finally:

@@ -5,6 +5,10 @@ Counterparts of ``medmamba_tpu/ops/pallas_scan.py``'s ``_fwd_kernel_ssd`` and
 ``csrc/selective_scan_bwd.cu``, built and loaded by ``ops/cuda_build.py`` on
 first launch.
 
+Both take the compute mode of ``ops.selective_scan`` (its module docstring
+says where the bfloat16 mode rounds) as ``compute``: each kernel is
+compiled for both modes, the float32 one as it was before the mode.
+
 ``LAUNCHES`` counts K1 launches made through :func:`selective_scan_fwd` and
 ``BWD_LAUNCHES`` K2 launches made through :func:`selective_scan_bwd`. K2 is
 a pair of kernels, the scan's adjoint and the fixed-order sum of its
@@ -24,6 +28,7 @@ BWD_SOURCE = "selective_scan_bwd.cu"
 N_STATE = 16
 TILE = 64          # K1's tile: the states hold one entry per tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_COMPUTE_CODE = {"float32": 0, "bfloat16": 1}
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
@@ -31,17 +36,17 @@ BWD_LAUNCHES = 0
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     cfg = lib.medmamba_selective_scan_fwd_config
-    cfg.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    cfg.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
     cfg.restype = ctypes.c_int
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_bwd
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 11 \
+    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.medmamba_selective_scan_bwd_workspace
@@ -63,6 +68,14 @@ def _check(name: str, x: torch.Tensor, device, dtypes, shape) -> None:
 
 def _ptr(x: Optional[torch.Tensor]):
     return None if x is None else x.data_ptr()
+
+
+def compute_code(compute: str) -> int:
+    """The C entry points' code of a compute mode; raises on other names."""
+    if compute not in _COMPUTE_CODE:
+        raise ValueError(f"compute {compute!r}: expected one of "
+                         f"{tuple(_COMPUTE_CODE)}")
+    return _COMPUTE_CODE[compute]
 
 
 def _validate(u, delta, A, B, C, D, delta_bias, reverse_dirs, u_tile,
@@ -109,8 +122,10 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                        u_tile: int = 1, out_dtype=None,
                        valid_len: Optional[int] = None,
                        return_last_state: bool = False,
-                       return_states: bool = False):
-    """Launch K1 on CUDA tensors; the layouts of ``ops.selective_scan``.
+                       return_states: bool = False,
+                       compute: str = "float32"):
+    """Launch K1 on CUDA tensors; the layouts of ``ops.selective_scan``, in
+    the compute mode ``compute``.
 
     u (b, G/u_tile * dpg, L) and delta (b, G*dpg, L), B and C (b, G, 16, L),
     all float32 or all bfloat16; A (G*dpg, 16), D and delta_bias (G*dpg,)
@@ -135,6 +150,7 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     out_dtype = out_dtype or torch.float32
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"out_dtype {out_dtype} is not float32 or bfloat16")
+    mode = compute_code(compute)
 
     device = u.device
     y = torch.empty((b, d, l), dtype=out_dtype, device=device)
@@ -150,7 +166,7 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
             C.data_ptr(), _ptr(D), _ptr(delta_bias), y.data_ptr(),
             _ptr(last), _ptr(states), b, g, g // u_tile, dpg, N_STATE, l,
             valid_len, int(bool(delta_softplus)), rev_mask,
-            _DTYPE_CODE[u.dtype], _DTYPE_CODE[out_dtype], stream)
+            _DTYPE_CODE[u.dtype], _DTYPE_CODE[out_dtype], mode, stream)
     cuda_build.check_launch(lib, rc, "selective-scan forward")
     LAUNCHES += 1
     return y, last, states
@@ -158,7 +174,8 @@ def selective_scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
 def selective_scan_fwd_config(batch: int, groups: int, dpg: int,
                               in_dtype=torch.float32,
-                              out_dtype=torch.float32) -> dict:
+                              out_dtype=torch.float32,
+                              compute: str = "float32") -> dict:
     """What K1 launches for these sizes on the current card: channels per
     block (32 when there are enough such blocks to fill the card, else 8),
     bytes of dynamic shared memory a block, registers a thread and blocks an
@@ -167,7 +184,7 @@ def selective_scan_fwd_config(batch: int, groups: int, dpg: int,
     info = (ctypes.c_int * 4)()
     rc = lib.medmamba_selective_scan_fwd_config(
         batch, groups, dpg, _DTYPE_CODE[in_dtype], _DTYPE_CODE[out_dtype],
-        info)
+        compute_code(compute), info)
     cuda_build.check_launch(lib, rc, "selective-scan forward config")
     return dict(channels_per_block=info[0], smem_bytes=info[1],
                 registers=info[2], blocks_per_sm=info[3])
@@ -181,8 +198,10 @@ def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                        delta_softplus: bool = False,
                        reverse_dirs: Optional[Sequence[bool]] = None,
                        u_tile: int = 1,
-                       valid_len: Optional[int] = None):
-    """Launch K2: the gradients of K1's y with respect to its inputs.
+                       valid_len: Optional[int] = None,
+                       compute: str = "float32"):
+    """Launch K2: the gradients of K1's y with respect to its inputs, in the
+    compute mode of the forward (``compute``).
 
     Operands as for :func:`selective_scan_fwd`, plus the tile-entry
     ``states`` it returned and gy (b, G*dpg, L), float32 or bfloat16.
@@ -195,6 +214,7 @@ def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     global BWD_LAUNCHES
     b, d, l, g, dpg, rev_mask, valid_len = _validate(
         u, delta, A, B, C, D, delta_bias, reverse_dirs, u_tile, valid_len)
+    mode = compute_code(compute)
     device = u.device
     _check("states", states, device, (torch.float32,),
            (b, d, -(-l // TILE), N_STATE))
@@ -223,7 +243,7 @@ def selective_scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
             dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias),
             *(w.data_ptr() for w in ws), b, g, g // u_tile, dpg, N_STATE, l,
             valid_len, int(bool(delta_softplus)), rev_mask,
-            _DTYPE_CODE[u.dtype], _DTYPE_CODE[gy.dtype], stream)
+            _DTYPE_CODE[u.dtype], _DTYPE_CODE[gy.dtype], mode, stream)
     cuda_build.check_launch(lib, rc, "selective-scan backward")
     BWD_LAUNCHES += 1
     if u_tile > 1:

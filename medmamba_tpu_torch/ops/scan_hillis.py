@@ -12,6 +12,10 @@ K2's ``scan_cuda.TILE``-step tiles and runs K2's sequential adjoint
 left to right only; ``ops.selective_scan`` flips reverse groups and tiles a
 shared u around them, as the JAX package's wrapper does.
 
+Both take the compute mode of ``ops.selective_scan`` as ``compute``; in the
+bfloat16 mode they also carry the state h and the adjoint dh in bfloat16,
+as the TPU kernels do.
+
 ``HILLIS_LAUNCHES`` counts K3 launches made through
 :func:`selective_scan_hillis_fwd` and ``HILLIS_BWD_LAUNCHES`` K4 launches
 made through :func:`selective_scan_hillis_bwd`.
@@ -36,14 +40,14 @@ HILLIS_BWD_LAUNCHES = 0
 
 def _declare_fwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_hillis_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
 def _declare_bwd(lib: ctypes.CDLL) -> None:
     fn = lib.medmamba_selective_scan_hillis_bwd
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 9 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     ws = lib.medmamba_selective_scan_hillis_bwd_workspace
@@ -61,8 +65,10 @@ def selective_scan_hillis_fwd(u: torch.Tensor, delta: torch.Tensor,
                               D: Optional[torch.Tensor] = None,
                               delta_bias: Optional[torch.Tensor] = None, *,
                               delta_softplus: bool = False,
-                              valid_len: Optional[int] = None):
-    """Launch K3 on CUDA tensors: the scan left to right over every group.
+                              valid_len: Optional[int] = None,
+                              compute: str = "float32"):
+    """Launch K3 on CUDA tensors: the scan left to right over every group,
+    in the compute mode ``compute``.
 
     Returns ``(y, states, last)``, all float32: y (b, G*dpg, L) whatever the
     input type (the TPU kernel stores float32 too), the state entering each
@@ -81,6 +87,7 @@ def selective_scan_hillis_fwd(u: torch.Tensor, delta: torch.Tensor,
     # the operands of K1 with one u group per scan group
     b, d, l, g, dpg, _, valid_len = scan_cuda._validate(
         u, delta, A, B, C, D, delta_bias, None, 1, valid_len)
+    mode = scan_cuda.compute_code(compute)
     f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty((b, d, l), **f32)
     states = torch.empty((b, d, n_chunks(l), N_STATE), **f32)
@@ -93,7 +100,7 @@ def selective_scan_hillis_fwd(u: torch.Tensor, delta: torch.Tensor,
             C.data_ptr(), scan_cuda._ptr(D), scan_cuda._ptr(delta_bias),
             y.data_ptr(), states.data_ptr(), last.data_ptr(), b, g, dpg,
             N_STATE, l, valid_len, int(bool(delta_softplus)),
-            scan_cuda._DTYPE_CODE[u.dtype], stream)
+            scan_cuda._DTYPE_CODE[u.dtype], mode, stream)
     cuda_build.check_launch(lib, rc, "hillis selective-scan forward")
     HILLIS_LAUNCHES += 1
     return y, states, last
@@ -105,8 +112,10 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
                               delta_bias: Optional[torch.Tensor],
                               states: torch.Tensor, gy: torch.Tensor, *,
                               delta_softplus: bool = False,
-                              valid_len: Optional[int] = None):
-    """Launch K4: the gradients of K3's y with respect to its inputs.
+                              valid_len: Optional[int] = None,
+                              compute: str = "float32"):
+    """Launch K4: the gradients of K3's y with respect to its inputs, in the
+    compute mode of the forward (``compute``).
 
     Operands as for :func:`selective_scan_hillis_fwd`, plus the chunk-entry
     ``states`` it returned and gy (b, G*dpg, L) float32. Returns ``(du,
@@ -119,6 +128,7 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
     # the operands of K1 with one u group per scan group
     b, d, l, g, dpg, _, valid_len = scan_cuda._validate(
         u, delta, A, B, C, D, delta_bias, None, 1, valid_len)
+    mode = scan_cuda.compute_code(compute)
     device = u.device
     scan_cuda._check("states", states, device, (torch.float32,),
                      (b, d, n_chunks(l), N_STATE))
@@ -147,7 +157,7 @@ def selective_scan_hillis_bwd(u: torch.Tensor, delta: torch.Tensor,
             ddelta.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             scan_cuda._ptr(dD), scan_cuda._ptr(dbias), ws.data_ptr(), b, g,
             dpg, N_STATE, l, valid_len, int(bool(delta_softplus)),
-            scan_cuda._DTYPE_CODE[u.dtype], stream)
+            scan_cuda._DTYPE_CODE[u.dtype], mode, stream)
     cuda_build.check_launch(lib, rc, "hillis selective-scan backward")
     HILLIS_BWD_LAUNCHES += 1
     return du, ddelta, dA, dB.to(B.dtype), dC.to(C.dtype), dD, dbias

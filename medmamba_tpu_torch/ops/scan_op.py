@@ -15,8 +15,12 @@ node and which dispatches by device when it runs:
   kernel: the hillis scan is chosen only for a CUDA tensor.
 
 Both take the call-site contract of ``ops.selective_scan`` (without tau,
-which it ignores) and return a list: ``[y]``, or ``[y, last]`` with
-``return_last_state``, y (b, KD, L) and last (b, KD, N) float32. The fake
+which it ignores) and its compute mode as ``compute`` ("float32", the
+default, or "bfloat16"; the CPU kernel runs the plain version in that mode),
+and return a list: ``[y]``, or ``[y, last]`` with
+``return_last_state``, y (b, KD, L) and last (b, KD, N) float32. The mode
+is an argument of the node, so an exported graph keeps the mode it was
+traced under whatever ``MEDMAMBA_SCAN_COMPUTE`` says when it runs. The fake
 kernels give those shapes without running anything, so the kernels' launch
 counts move only when a kernel runs. Neither op has a backward: gradients
 go through ``_KernelScan`` and ``_HillisScan``, and ``ops.selective_scan``
@@ -37,7 +41,7 @@ from medmamba_tpu_torch.ops import selective_scan as ss
 _ARGS = ("Tensor u, Tensor delta, Tensor A, Tensor B, Tensor C, Tensor? D, "
          "Tensor? delta_bias, bool delta_softplus, bool return_last_state, "
          "bool[]? reverse_dirs, int u_tile, ScalarType? out_dtype, "
-         "int? valid_len")
+         "int? valid_len, str compute='float32'")
 
 _LIB = torch.library.Library("medmamba", "DEF")
 _LIB.define(f"selective_scan_fwd({_ARGS}) -> Tensor[]")
@@ -49,35 +53,39 @@ selective_scan_hillis_fwd = (
 
 
 def _fwd_cpu(u, delta, A, B, C, D, delta_bias, delta_softplus,
-             return_last_state, reverse_dirs, u_tile, out_dtype, valid_len):
+             return_last_state, reverse_dirs, u_tile, out_dtype, valid_len,
+             compute="float32"):
     out = ss._plain_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
                          return_last_state, reverse_dirs, u_tile, out_dtype,
-                         valid_len)
+                         valid_len, compute)
     return list(out) if return_last_state else [out]
 
 
 def _fwd_cuda(u, delta, A, B, C, D, delta_bias, delta_softplus,
-              return_last_state, reverse_dirs, u_tile, out_dtype, valid_len):
+              return_last_state, reverse_dirs, u_tile, out_dtype, valid_len,
+              compute="float32"):
     y, last, _ = scan_cuda.selective_scan_fwd(
         u, delta, A, B, C, D, delta_bias, delta_softplus=delta_softplus,
         reverse_dirs=reverse_dirs, u_tile=u_tile, out_dtype=out_dtype,
-        valid_len=valid_len, return_last_state=return_last_state)
+        valid_len=valid_len, return_last_state=return_last_state,
+        compute=compute)
     return [y, last] if return_last_state else [y]
 
 
 def _hillis_fwd_cuda(u, delta, A, B, C, D, delta_bias, delta_softplus,
                      return_last_state, reverse_dirs, u_tile, out_dtype,
-                     valid_len):
+                     valid_len, compute="float32"):
     y, last = ss._hillis_scan(
         u, delta, A, B, C, D, delta_bias, delta_softplus, True, reverse_dirs,
         u_tile, valid_len, scan_hillis.selective_scan_hillis_fwd,
-        scan_hillis.selective_scan_hillis_bwd)
+        scan_hillis.selective_scan_hillis_bwd, compute)
     return [y, last] if return_last_state else [y]
 
 
 def _fake(y_dtype):
     def fake(u, delta, A, B, C, D, delta_bias, delta_softplus,
-             return_last_state, reverse_dirs, u_tile, out_dtype, valid_len):
+             return_last_state, reverse_dirs, u_tile, out_dtype, valid_len,
+             compute="float32"):
         y = delta.new_empty(delta.shape, dtype=y_dtype or out_dtype
                             or torch.float32)
         if not return_last_state:

@@ -28,6 +28,22 @@ version. ``selective_scan_states_ref`` and ``selective_scan_bwd_ref`` are
 the plain versions of K1's tile-entry states and of K2;
 ``selective_scan_hillis_ref`` and ``selective_scan_hillis_bwd_ref`` those of
 K3 and K4.
+
+The compute mode. ``MEDMAMBA_SCAN_COMPUTE=bfloat16``, read at each call as
+the JAX package reads it (``pallas_scan.py:85-95 _compute_dtype``), runs a
+CUDA tensor's scan in the kernels' bfloat16 mode; any other value, or none,
+in float32. In the mode the kernels round the scan's per-step factors to
+bfloat16: the decay a_t = exp(dt_t A), the input b_t = dt_t u_t B_t (from
+dt_t u_t and B_t rounded), and in the backward q_t = C_t gy_t (from C_t and
+gy_t rounded); the hillis pair (K3, K4) also carries the state h and the
+adjoint dh in bfloat16, and sums y from h C_t rounded (C_t rounded), as the
+TPU kernels' ``_fwd_kernel``/``_bwd_kernel`` do. Exponents, softplus,
+``D * u``, every sum over states, channels, steps or the batch, and every
+saved or carried boundary state stay float32. The plain versions take the
+mode as their ``compute`` argument and round at the same points. A CPU
+tensor's scan runs in float32 whatever the variable says, as the JAX
+package's CPU path runs its float32 ``assoc`` scan
+(``medmamba_tpu/ops/selective_scan.py:296-299``).
 """
 from __future__ import annotations
 
@@ -40,6 +56,17 @@ import torch.nn.functional as F
 from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
 
 KERNELS = ("ssd", "hillis")
+COMPUTES = ("float32", "bfloat16")
+
+
+def _rounding(compute: str):
+    """The rounding of the compute mode ``compute``: to bfloat16 and back
+    in the bfloat16 mode, the identity in float32."""
+    if compute not in COMPUTES:
+        raise ValueError(f"compute {compute!r}: expected one of {COMPUTES}")
+    if compute == "float32":
+        return lambda x: x
+    return lambda x: x.to(torch.bfloat16).float()
 
 
 def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
@@ -47,11 +74,15 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                        D: Optional[torch.Tensor] = None,
                        delta_bias: Optional[torch.Tensor] = None,
                        delta_softplus: bool = False,
-                       return_last_state: bool = False):
-    """Sequential float32 scan (the numerical reference).
+                       return_last_state: bool = False,
+                       compute: str = "float32"):
+    """Sequential float32 scan (the numerical reference); with ``compute``
+    "bfloat16" the plain version of K1's bfloat16 mode (a_t and b_t
+    rounded, see the module's docstring; h and y float32).
 
     Returns y (B, KD, L) float32 and, optionally, the last state (B, KD, N).
     """
+    r = _rounding(compute)
     u = u.float()
     delta = delta.float()
     A = A.float()
@@ -66,14 +97,14 @@ def selective_scan_ref(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     # per-group views: the state is (B, G, dpg, N); B_t / C_t broadcast over dpg
     A4 = A.reshape(g, dpg, n)
     dt4 = delta.reshape(b, g, dpg, l)
-    dtu4 = (delta * u).reshape(b, g, dpg, l)
-    Bm = B.float()
+    dtu4 = r(delta * u).reshape(b, g, dpg, l)
+    Bm = r(B.float())
     Cm = C.float()
     h = u.new_zeros((b, g, dpg, n))
     ys = []
     for t in range(l):
-        dA = torch.exp(dt4[..., t, None] * A4)
-        h = dA * h + dtu4[..., t, None] * Bm[:, :, None, :, t]
+        dA = r(torch.exp(dt4[..., t, None] * A4))
+        h = dA * h + r(dtu4[..., t, None] * Bm[:, :, None, :, t])
         ys.append((h * Cm[:, :, None, :, t]).sum(-1))
     y = torch.stack(ys, dim=-1).reshape(b, d, l)
     if D is not None:
@@ -104,11 +135,11 @@ def _tile_starts(l: int, rev: bool) -> list:
 
 
 def _groups_in_order(u, delta, B, C, delta_bias, delta_softplus,
-                     reverse_dirs, u_tile, valid_len):
+                     reverse_dirs, u_tile, valid_len, r):
     """Per group, float32 operands in processing order (reverse groups
     flipped along L): a list of dicts with u, dt (b, dpg, L), the derivative
-    of dt by delta ``fac`` (0 in the padded tail), B and C (b, N, L), and
-    the flag ``rev``."""
+    of dt by delta ``fac`` (0 in the padded tail), B and C (b, N, L) passed
+    through the compute mode's rounding ``r``, and the flag ``rev``."""
     b, d, l = delta.shape
     g = B.shape[1]
     dpg = d // g
@@ -132,7 +163,7 @@ def _groups_in_order(u, delta, B, C, delta_bias, delta_softplus,
     for k in range(g):
         ch = slice(k * dpg, (k + 1) * dpg)
         grp = dict(u=u[:, ch], dt=dt[:, ch], fac=fac[:, ch],
-                   B=B[:, k].float(), C=C[:, k].float())
+                   B=r(B[:, k].float()), C=r(C[:, k].float()))
         if rev[k]:
             grp = {name: v.flip(-1) for name, v in grp.items()}
         grp["rev"] = rev[k]
@@ -147,17 +178,20 @@ def selective_scan_states_ref(u: torch.Tensor, delta: torch.Tensor,
                               delta_softplus: bool = False,
                               reverse_dirs: Optional[Sequence[bool]] = None,
                               u_tile: int = 1,
-                              valid_len: Optional[int] = None) -> torch.Tensor:
+                              valid_len: Optional[int] = None,
+                              compute: str = "float32") -> torch.Tensor:
     """The plain version of K1's tile-entry states: the float32 state before
     each 64-step tile, (b, KD, n_tiles, N) in processing order, for the
-    call-site contract of :func:`selective_scan`."""
+    call-site contract of :func:`selective_scan`, in the compute mode
+    ``compute``."""
+    r = _rounding(compute)
     b, d, l = delta.shape
     g = B.shape[1]
     A4 = A.float().reshape(g, d // g, -1)
     per_group = []
     for k, grp in enumerate(_groups_in_order(
             u, delta, B, C, delta_bias, delta_softplus, reverse_dirs, u_tile,
-            valid_len)):
+            valid_len, r)):
         starts = set(_tile_starts(l, grp["rev"]))
         h = u.new_zeros((b, d // g, A4.shape[-1]), dtype=torch.float32)
         kept = []
@@ -165,8 +199,8 @@ def selective_scan_states_ref(u: torch.Tensor, delta: torch.Tensor,
             if j in starts:
                 kept.append(h)
             dt = grp["dt"][..., j, None]
-            h = torch.exp(dt * A4[k]) * h \
-                + (dt * grp["u"][..., j, None]) * grp["B"][:, None, :, j]
+            h = r(torch.exp(dt * A4[k])) * h \
+                + r(r(dt * grp["u"][..., j, None]) * grp["B"][:, None, :, j])
         per_group.append(torch.stack(kept, dim=2))
     return torch.cat(per_group, dim=1)
 
@@ -179,7 +213,8 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
                            delta_softplus: bool = False,
                            reverse_dirs: Optional[Sequence[bool]] = None,
                            u_tile: int = 1,
-                           valid_len: Optional[int] = None):
+                           valid_len: Optional[int] = None,
+                           compute: str = "float32"):
     """The plain version of K2: the explicit adjoint of the scan.
 
     From the inputs, the tile-entry ``states`` and gy it recomputes each
@@ -187,8 +222,12 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
     ``dh_t = C_t gy_t + a_{t+1} dh_{t+1}``, as K2 does. Returns
     ``(du, ddelta, dA, dB, dC, dD, dbias)`` in the dtypes of their primals
     (dD and dbias None where D and delta_bias are); see
-    ``csrc/selective_scan_bwd.cu`` for the formulas.
+    ``csrc/selective_scan_bwd.cu`` for the formulas. With ``compute``
+    "bfloat16", K2's bfloat16 mode: the states recomputed as K1's mode
+    computes them, B and C rounded wherever they are read, q_t = C_t gy_t
+    rounded from gy_t rounded; dh, the carry and every sum float32.
     """
+    r = _rounding(compute)
     b, d, l = delta.shape
     g = B.shape[1]
     dpg = d // g
@@ -196,7 +235,7 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
     gy = gy.float()
     du, ddt, dA, dB, dC = [], [], [], [], []
     groups = _groups_in_order(u, delta, B, C, delta_bias, delta_softplus,
-                              reverse_dirs, u_tile, valid_len)
+                              reverse_dirs, u_tile, valid_len, r)
     for k, grp in enumerate(groups):
         uu, dt, Bg, Cg = grp["u"], grp["dt"], grp["B"], grp["C"]
         gyg = gy[:, k * dpg:(k + 1) * dpg]
@@ -212,16 +251,16 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
             h = states[:, k * dpg:(k + 1) * dpg, t].float()
             h_prev, decay = [], []
             for j in range(j0, j1):
-                a = torch.exp(dt[..., j, None] * a_k)
+                a = r(torch.exp(dt[..., j, None] * a_k))
                 h_prev.append(h)
                 decay.append(a)
-                h = a * h + (dt[..., j, None] * uu[..., j, None]) \
-                    * Bg[:, None, :, j]
+                h = a * h + r(r(dt[..., j, None] * uu[..., j, None])
+                              * Bg[:, None, :, j])
             for j in reversed(range(j0, j1)):
                 hp, a = h_prev[j - j0], decay[j - j0]
                 dtu = dt[..., j, None] * uu[..., j, None]
-                h_t = a * hp + dtu * Bg[:, None, :, j]
-                dh = Cg[:, None, :, j] * gyg[..., j, None] + carry
+                h_t = a * hp + r(r(dtu) * Bg[:, None, :, j])
+                dh = r(Cg[:, None, :, j] * r(gyg[..., j, None])) + carry
                 carry = a * dh
                 dA_k = dA_k + (dh * hp * a * dt[..., j, None]).sum(0)
                 out["du"][j] = (dh * dt[..., j, None] * Bg[:, None, :, j]
@@ -256,7 +295,9 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
 
 class _KernelScan(torch.autograd.Function):
     """K1 forward, K2 backward: the counterpart of the JAX package's
-    ``custom_vjp`` around its scan kernels (``pallas_scan.py:1585-1648``)."""
+    ``custom_vjp`` around its scan kernels (``pallas_scan.py:1585-1648``).
+    ``kw`` holds the compute mode too, so the backward runs in the mode of
+    the forward that ran, whatever the variable says by then."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, delta_bias, return_last_state,
@@ -291,6 +332,17 @@ def _kernel_impl() -> str:
     return impl
 
 
+def _compute_mode(x: torch.Tensor) -> str:
+    """The compute mode of a scan on ``x``: on a CUDA tensor
+    ``MEDMAMBA_SCAN_COMPUTE``, read at each call as the JAX package reads it
+    (``pallas_scan.py:94``): ``bfloat16`` selects the kernels' bfloat16
+    mode, anything else float32. On a CPU tensor float32 (see the module's
+    docstring)."""
+    if x.is_cuda and os.environ.get("MEDMAMBA_SCAN_COMPUTE") == "bfloat16":
+        return "bfloat16"
+    return "float32"
+
+
 def _pow2ceil(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
@@ -323,6 +375,31 @@ def _fwd_chunk_scan(a, x, h0):
     return x
 
 
+def _seq_chunk_scan(a, x, h0):
+    """h_t = bf16(a_t h_{t-1} + x_t) step by step over the last axis from
+    h0: K3's walk in the bfloat16 mode, the state rounded once a step (a_t
+    and h_{t-1} are bfloat16 values, so a_t h_{t-1} is exact in float32)."""
+    r = _rounding("bfloat16")
+    hs, h = [], h0
+    for t in range(x.shape[-1]):
+        h = r(a[..., t] * h + x[..., t])
+        hs.append(h)
+    return torch.stack(hs, dim=-1)
+
+
+def _seq_chunk_adjoint(a, q, carry):
+    """dh_t = bf16(q_t + a_{t+1} dh_{t+1}) step by step from the last, the
+    carry of the chunk after in the place of a_{t+1} dh_{t+1} at the last
+    step: K4's walk in the bfloat16 mode. Returns dh and the carry a_0 dh_0
+    into the chunk before."""
+    r = _rounding("bfloat16")
+    dhs = [None] * q.shape[-1]
+    for t in reversed(range(q.shape[-1])):
+        dhs[t] = r(q[..., t] + carry)
+        carry = a[..., t] * dhs[t]
+    return torch.stack(dhs, dim=-1), carry
+
+
 def _bwd_chunk_scan(a, q, carry):
     """Suffix scan X_t = q_t + a_{t+1} X_{t+1} by doubling, the carry of
     the chunk after folded into the last step: ``pallas_scan.py:190
@@ -339,11 +416,13 @@ def _bwd_chunk_scan(a, q, carry):
     return q
 
 
-def _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus, valid_len):
+def _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus, valid_len,
+                   r):
     """Per 128-step chunk, in order, K3's float32 operands in the grouped
     layout (b, G, dpg, [N,] T): a dict of dt, its derivative ``sig`` by
     delta, u, the decays a, the inputs x = dt u B, B, C and the live mask
-    (identity steps past ``valid_len``)."""
+    (identity steps past ``valid_len``); a, x, B and C passed through the
+    compute mode's rounding ``r`` where the kernels round them."""
     b, d, l = delta.shape
     g = B.shape[1]
     dpg = d // g
@@ -359,13 +438,13 @@ def _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus, valid_len):
     A5 = A.float().reshape(1, g, dpg, -1, 1)
     dt4, sig4 = dt.reshape(b, g, dpg, l), sig.reshape(b, g, dpg, l)
     u4 = u.float().reshape(b, g, dpg, l)
-    B5, C5 = B.float()[:, :, None], C.float()[:, :, None]
+    B5, C5 = r(B.float())[:, :, None], r(C.float())[:, :, None]
     for t0 in range(0, l, scan_hillis.CHUNK):
         sl = slice(t0, min(t0 + scan_hillis.CHUNK, l))
         m = live[sl]
         dtc, uc = dt4[..., sl], u4[..., sl]
-        a = torch.where(m, torch.exp(dtc[..., None, :] * A5), 1.0)
-        x = torch.where(m, (dtc * uc)[..., None, :] * B5[..., sl], 0.0)
+        a = torch.where(m, r(torch.exp(dtc[..., None, :] * A5)), 1.0)
+        x = torch.where(m, r(r(dtc * uc)[..., None, :] * B5[..., sl]), 0.0)
         yield dict(sl=sl, live=m, dt=dtc, sig=sig4[..., sl], u=uc, a=a, x=x,
                    B=B5[..., sl], C=C5[..., sl])
 
@@ -376,24 +455,31 @@ def selective_scan_hillis_ref(u: torch.Tensor, delta: torch.Tensor,
                               D: Optional[torch.Tensor] = None,
                               delta_bias: Optional[torch.Tensor] = None,
                               delta_softplus: bool = False,
-                              valid_len: Optional[int] = None):
+                              valid_len: Optional[int] = None,
+                              compute: str = "float32"):
     """The plain version of K3: the chunked doubling scan, left to right,
-    vectorized over (b, d, n); the TPU kernel's ``_fwd_kernel`` body.
+    vectorized over (b, d, n); the TPU kernel's ``_fwd_kernel`` body. With
+    ``compute`` "bfloat16", K3's bfloat16 mode, which no doubling can
+    round as the kernel's walk does: each chunk walked step by step, the
+    state rounded each step (``_seq_chunk_scan``), y summed in float32 from
+    h C_t rounded.
 
     Operands as K3 takes them (u with all G*dpg channels, no flips).
     Returns ``(y, states, last)`` in float32: y (b, d, L), the state entering
     each 128-step chunk (b, d, n_chunks, N) and the state after the last step
     (b, d, N). Positions >= ``valid_len`` are identity steps.
     """
+    r = _rounding(compute)
+    scan = _fwd_chunk_scan if compute == "float32" else _seq_chunk_scan
     b, d, l = delta.shape
     g, n = B.shape[1], A.shape[1]
     h = u.new_zeros((b, g, d // g, n), dtype=torch.float32)
     ys, states = [], []
     for ck in _hillis_chunks(u, delta, A, B, C, delta_bias, delta_softplus,
-                             valid_len):
+                             valid_len, r):
         states.append(h)
-        hc = _fwd_chunk_scan(ck["a"], ck["x"], h)
-        ys.append((hc * ck["C"]).sum(3))
+        hc = scan(ck["a"], ck["x"], h)
+        ys.append(r(hc * ck["C"]).sum(3))
         h = hc[..., -1]
     y = torch.cat(ys, dim=-1).reshape(b, d, l)
     if D is not None:
@@ -408,9 +494,15 @@ def selective_scan_hillis_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
                                   delta_bias: Optional[torch.Tensor],
                                   states: torch.Tensor, gy: torch.Tensor,
                                   delta_softplus: bool = False,
-                                  valid_len: Optional[int] = None):
+                                  valid_len: Optional[int] = None,
+                                  compute: str = "float32"):
     """The plain version of K4: K3's adjoint by reverse doubling, chunks
-    walked last to first; the TPU kernel's ``_bwd_kernel`` body.
+    walked last to first; the TPU kernel's ``_bwd_kernel`` body. With
+    ``compute`` "bfloat16", K4's bfloat16 mode: each chunk's states
+    recomputed as K3's mode computes them, q_t = C_t gy_t rounded from
+    C_t and gy_t rounded, and dh walked step by step and rounded each step
+    (``_seq_chunk_adjoint``); B rounded wherever it is read; the carry
+    between chunks and every sum float32.
 
     Each chunk's states are recomputed from its entry in ``states``;
     ``dh_t = C_t gy_t + a_{t+1} dh_{t+1}`` is solved by a suffix doubling
@@ -420,6 +512,7 @@ def selective_scan_hillis_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
     dbias None where D and delta_bias are); see
     ``csrc/selective_scan_hillis_bwd.cu`` for the formulas.
     """
+    r = _rounding(compute)
     b, d, l = delta.shape
     g, n = B.shape[1], A.shape[1]
     dpg = d // g
@@ -428,7 +521,7 @@ def selective_scan_hillis_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
     D4 = (D.float() if D is not None else A.new_zeros(d)).reshape(g, dpg, 1)
     A5 = A.float().reshape(1, g, dpg, n, 1)
     chunks = list(_hillis_chunks(u, delta, A, B, C, delta_bias,
-                                 delta_softplus, valid_len))
+                                 delta_softplus, valid_len, r))
     du, ddt, dB, dC = ([None] * len(chunks) for _ in range(4))
     dA = torch.zeros((g, dpg, n), dtype=torch.float32, device=A.device)
     dD = torch.zeros((g, dpg), dtype=torch.float32, device=A.device)
@@ -438,10 +531,15 @@ def selective_scan_hillis_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
         h0 = st[..., ci, :]
         gyc = torch.where(ck["live"], gy4[..., ck["sl"]], 0.0)
         a = ck["a"]
-        hc = _fwd_chunk_scan(a, ck["x"], h0)
+        q = r(ck["C"] * r(gyc)[..., None, :])
+        if compute == "float32":
+            hc = _fwd_chunk_scan(a, ck["x"], h0)
+            dh = _bwd_chunk_scan(a, q, carry)
+            carry = a[..., 0] * dh[..., 0]
+        else:
+            hc = _seq_chunk_scan(a, ck["x"], h0)
+            dh, carry = _seq_chunk_adjoint(a, q, carry)
         hprev = torch.cat([h0[..., None], hc[..., :-1]], dim=-1)
-        dh = _bwd_chunk_scan(a, ck["C"] * gyc[..., None, :], carry)
-        carry = a[..., 0] * dh[..., 0]
         p2 = dh * hprev * a
         dhB = (dh * ck["B"]).sum(3)
         dadt = (p2 * A5).sum(3)
@@ -469,19 +567,21 @@ class _HillisScan(torch.autograd.Function):
 
     ``fwd`` and ``bwd`` compute the forward and the adjoint: the caller
     passes K3's and K4's launchers (``ops/scan_hillis.py``) or their plain
-    versions; nothing here chooses between them. Returns ``(y, last)``, y in
-    float32, the last state not differentiable; the gradients come back in
-    the dtypes of their primals.
+    versions; nothing here chooses between them. Both run in the compute
+    mode ``compute``, the backward in the forward's. Returns ``(y, last)``,
+    y in float32, the last state not differentiable; the gradients come
+    back in the dtypes of their primals.
     """
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, delta_bias, delta_softplus,
-                valid_len, fwd, bwd):
+                valid_len, fwd, bwd, compute):
         y, states, last = fwd(u, delta, A, B, C, D, delta_bias,
                               delta_softplus=delta_softplus,
-                              valid_len=valid_len)
+                              valid_len=valid_len, compute=compute)
         ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, states)
-        ctx.kw = dict(delta_softplus=delta_softplus, valid_len=valid_len)
+        ctx.kw = dict(delta_softplus=delta_softplus, valid_len=valid_len,
+                      compute=compute)
         ctx.bwd = bwd
         ctx.mark_non_differentiable(last)
         return y, last
@@ -492,19 +592,20 @@ class _HillisScan(torch.autograd.Function):
         grads = ctx.bwd(*saved, gy.float().contiguous(), **ctx.kw)
         grads = tuple(None if gr is None else gr.to(x.dtype)
                       for gr, x in zip(grads, saved))
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def _hillis_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
                  return_last_state, reverse_dirs, u_tile, valid_len, fwd,
-                 bwd):
+                 bwd, compute="float32"):
     """The JAX package's wrapper around its doubling kernels
     (``pallas_scan.py:1704-1746``): a tiled u is materialized, flagged
     groups are flipped along L into a forward-only scan and y is flipped
     back; with flips, ``valid_len`` becomes delta = -1e4 at the pad
     positions before the flip (softplus gives dt = 0 there exactly) and is
     then dropped, else the scan masks it. y is float32 whatever the caller's
-    ``out_dtype``. ``fwd``/``bwd`` as for :class:`_HillisScan`."""
+    ``out_dtype``. ``fwd``/``bwd`` and ``compute`` as for
+    :class:`_HillisScan`."""
     g = B.shape[1]
     if u_tile > 1:
         u = torch.cat([u] * u_tile, dim=1)
@@ -518,7 +619,7 @@ def _hillis_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
         u, delta, B, C = (_flip_groups(x, g, reverse_dirs)
                           for x in (u, delta, B, C))
     y, last = _HillisScan.apply(u, delta, A, B, C, D, delta_bias,
-                                delta_softplus, valid_len, fwd, bwd)
+                                delta_softplus, valid_len, fwd, bwd, compute)
     if flip:
         y = _flip_groups(y, g, reverse_dirs)
     return (y, last) if return_last_state else y
@@ -548,7 +649,10 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     backward; ``hillis`` runs K3 and K4 as its backward (the JAX package's
     doubling scan, computed by sequential walks on the card),
     with the JAX wrapper's semantics (reverse groups flipped around a
-    forward-only scan, y always float32, see :func:`_hillis_scan`).
+    forward-only scan, y always float32, see :func:`_hillis_scan`); and
+    ``MEDMAMBA_SCAN_COMPUTE``, read at each call too, their compute mode
+    (``bfloat16`` or float32, see the module's docstring; the backward runs
+    in its forward's mode). "ref" and a CPU tensor compute in float32.
 
     tau: accepted and ignored. It was the TPU kernel's segment length; both
     versions here compute the exact recurrence at any magnitude.
@@ -575,21 +679,23 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     args = (u, delta, A, B, C, D, delta_bias, delta_softplus)
     auto = impl == "auto"
     hillis = auto and u.is_cuda and _kernel_impl() == "hillis"
+    compute = _compute_mode(u) if auto else "float32"
     if auto and not (torch.is_grad_enabled() and any(
             x is not None and x.requires_grad
             for x in (u, delta, A, B, C, D, delta_bias))):
         op = (scan_op.selective_scan_hillis_fwd if hillis
               else scan_op.selective_scan_fwd)
         out = op(*args, return_last_state, reverse_dirs, u_tile, out_dtype,
-                 valid_len)
+                 valid_len, compute)
         return tuple(out) if return_last_state else out[0]
     if hillis:
         return _hillis_scan(*args, return_last_state, reverse_dirs, u_tile,
                             valid_len, scan_hillis.selective_scan_hillis_fwd,
-                            scan_hillis.selective_scan_hillis_bwd)
+                            scan_hillis.selective_scan_hillis_bwd, compute)
     if auto and u.is_cuda:
         kw = dict(delta_softplus=delta_softplus, reverse_dirs=reverse_dirs,
-                  u_tile=u_tile, out_dtype=out_dtype, valid_len=valid_len)
+                  u_tile=u_tile, out_dtype=out_dtype, valid_len=valid_len,
+                  compute=compute)
         return _KernelScan.apply(u, delta, A, B, C, D, delta_bias,
                                  return_last_state, kw)
     return _plain_scan(*args, return_last_state, reverse_dirs, u_tile,
@@ -598,11 +704,12 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
 def _plain_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
                 return_last_state, reverse_dirs, u_tile, out_dtype,
-                valid_len):
+                valid_len, compute="float32"):
     """The plain version with the call-site contract of
     :func:`selective_scan`: the tiled u materialized, the padding made
     identity steps, reverse groups flipped around :func:`selective_scan_ref`
-    and y flipped back; autograd differentiates it."""
+    (in the compute mode ``compute``) and y flipped back; autograd
+    differentiates it."""
     g = B.shape[1]
     if u_tile > 1:
         u = torch.cat([u] * u_tile, dim=1)
@@ -616,7 +723,8 @@ def _plain_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
         u, delta, B, C = (_flip_groups(x, g, reverse_dirs)
                           for x in (u, delta, B, C))
     y, last = selective_scan_ref(u, delta, A, B, C, D, delta_bias,
-                                 delta_softplus, return_last_state=True)
+                                 delta_softplus, return_last_state=True,
+                                 compute=compute)
     if flip:
         y = _flip_groups(y, g, reverse_dirs)
     y = y.to(out_dtype or torch.float32)

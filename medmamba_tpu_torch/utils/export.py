@@ -13,7 +13,11 @@ How it differs from the JAX package's StableHLO artifact:
 - Each selective scan is one node of the graph, an op of
   ``ops/scan_op.py``: K1 on the card, or K3 when the artifact was exported
   under ``MEDMAMBA_SCAN_KERNEL=hillis`` (read while tracing, never when the
-  artifact runs); the plain scan on the CPU. So loading needs
+  artifact runs); the plain scan on the CPU. The same holds for the scan's
+  compute mode: each node carries the mode ``MEDMAMBA_SCAN_COMPUTE`` gave
+  while tracing (the bfloat16 mode on the card; float32 for the CPU, whose
+  scans compute in float32), as a JAX export bakes in the traced kernel;
+  ``Exported.scan_compute`` lists them. So loading needs
   ``medmamba_tpu_torch`` importable, for the ops and for K1/K3's build from
   its ``csrc/``; it needs no checkpoint: the weights are in the artifact.
 - There is no ``platforms`` argument: the artifact's tensors live on the
@@ -105,6 +109,23 @@ class Exported:
     def call(self, images: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
             return self._module(images)
+
+    def scan_compute(self) -> list:
+        """The compute mode of each scan node of the graph, in graph order:
+        what the artifact's scans run, whatever ``MEDMAMBA_SCAN_COMPUTE``
+        says when it is called."""
+        modes = []
+        for node in self.program.graph.nodes:
+            if node.op != "call_function" or not isinstance(
+                    node.target, torch._ops.OpOverload) or \
+                    node.target.namespace != "medmamba":
+                continue
+            args = node.target._schema.arguments
+            i = [a.name for a in args].index("compute")
+            modes.append(node.kwargs["compute"] if "compute" in node.kwargs
+                         else node.args[i] if len(node.args) > i
+                         else args[i].default_value)
+        return modes
 
 
 def load_exported(blob: bytes) -> Exported:

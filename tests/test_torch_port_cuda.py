@@ -22,6 +22,7 @@ import torch
 
 from medmamba_tpu_torch.models import vssm as tv
 from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis, scan_op
+from medmamba_tpu_torch.ops import selective_scan as ss
 from medmamba_tpu_torch.ops.selective_scan import (
     selective_scan, selective_scan_bwd_ref, selective_scan_hillis_bwd_ref,
     selective_scan_hillis_ref, selective_scan_states_ref)
@@ -799,3 +800,295 @@ def test_scan_op_raises_a_failed_build_or_launch(cuda, op, module,
     with pytest.raises(RuntimeError, match="nvcc failed"):
         fn(*args)
     assert scan_cuda.LAUNCHES == scan_hillis.HILLIS_LAUNCHES == 0
+
+
+# The bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16): each kernel in
+# the mode against its plain version in the mode, at the edge shapes above,
+# both widths, and the four stage shapes at batch 1. The roundings fall on
+# the same float32 values in both (exp, softplus and the products they
+# round come from the same float32 operations, and a product of two
+# bfloat16 values is exact), so the float32 tolerances hold: the walks
+# differ only in the order of their float32 sums.
+BF16 = "bfloat16"
+
+
+def _bf16_forward(cuda, x, kw, out_dtype=None):
+    """K1 in the mode and its plain versions: (y, last, states) each."""
+    got = scan_cuda.selective_scan_fwd(
+        **x, delta_softplus=True, out_dtype=out_dtype,
+        return_last_state=True, return_states=True, compute=BF16, **kw)
+    args = [x[k] for k in NAMES]
+    y, last = ss._plain_scan(*args, True, True, kw.get("reverse_dirs"),
+                             kw.get("u_tile", 1), out_dtype,
+                             kw.get("valid_len"), BF16)
+    states = selective_scan_states_ref(
+        x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"], True,
+        kw.get("reverse_dirs"), kw.get("u_tile", 1), kw.get("valid_len"),
+        compute=BF16)
+    torch.cuda.synchronize()
+    return got, (y, last, states)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,width", K1_EDGE_CASES)
+def test_bf16_mode_forward_matches_plain_version_at_edge_shapes(
+        cuda, shape, width, reverse, dtype):
+    kw = dict(K1_EDGE_SHAPES[shape])
+    dims = {k: kw.pop(k) for k in ("b", "dpg", "l") if k in kw}
+    u_tile = kw.pop("u_tile", 1)
+    g, dpg = 2, dims.get("dpg", 24)
+    if width == "wide":
+        dims["b"] = -(-132 // (g * -(-dpg // 32)))
+    dt = getattr(torch, dtype)
+    cfg = scan_cuda.selective_scan_fwd_config(dims.get("b", 3), g, dpg, dt,
+                                              dt, BF16)
+    assert cfg["channels_per_block"] == (32 if width == "wide" else 8), cfg
+    kw["reverse_dirs"] = (not reverse, reverse) if u_tile > 1 \
+        else (reverse, reverse)
+    kw["u_tile"] = u_tile
+    x = _inputs(cuda, u_tile=u_tile, dtype=dt, **dims)
+    (y, last, states), (y_r, last_r, states_r) = _bf16_forward(cuda, x, kw,
+                                                               dt)
+    assert y.dtype == y_r.dtype == dt
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y, y_r, rtol=tol, atol=tol)
+    torch.testing.assert_close(last, last_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(states, states_r, rtol=1e-4, atol=1e-4)
+
+
+def _bf16_backward(cuda, case):
+    """K1's states and K2 in the mode against their plain versions."""
+    kw = dict(case)
+    shape = {k: kw.pop(k) for k in ("b", "dpg", "l", "dtype") if k in kw}
+    x = _inputs(cuda, u_tile=kw.get("u_tile", 1), **shape)
+    out_dtype = kw.pop("out_dtype", None)
+    (y, _, states), (_, _, want_states) = _bf16_forward(cuda, x, kw,
+                                                        out_dtype)
+    torch.testing.assert_close(states, want_states, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gy = torch.randn(y.shape, generator=gen, device=cuda).to(y.dtype)
+    args = [x[k] for k in NAMES]
+    got = scan_cuda.selective_scan_bwd(*args, states, gy, delta_softplus=True,
+                                       compute=BF16, **kw)
+    want = selective_scan_bwd_ref(*args, want_states, gy,
+                                  delta_softplus=True, compute=BF16, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+    return args, states, gy, kw
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape", sorted(EDGE_SHAPES))
+def test_bf16_mode_backward_matches_plain_version_at_edge_shapes(
+        cuda, shape, reverse, dtype):
+    kw = dict(EDGE_SHAPES[shape])
+    if reverse:
+        kw["reverse_dirs"] = (True, True)
+    if dtype == "bfloat16":
+        kw.update(dtype=torch.bfloat16, out_dtype=torch.bfloat16)
+    _bf16_backward(cuda, kw)
+
+
+def _bf16_hillis(cuda, case, dtype, width="narrow", batch=None):
+    """K3 and K4 in the mode against their plain versions."""
+    kw = dict(case)
+    skip = kw.pop("skip", True)
+    valid_len = kw.pop("valid_len", None)
+    dpg = kw.get("dpg", 24)
+    if width == "wide":
+        kw["b"] = -(-132 // (2 * -(-dpg // 32)))
+    if batch is not None:
+        kw["b"] = batch
+    x = _inputs(cuda, dtype=getattr(torch, dtype), **kw)
+    if not skip:
+        x["D"] = x["delta_bias"] = None
+    args = [x[k] for k in NAMES]
+    vkw = dict(delta_softplus=True, valid_len=valid_len, compute=BF16)
+    got = scan_hillis.selective_scan_hillis_fwd(*args, **vkw)
+    want = selective_scan_hillis_ref(*args, **vkw)
+    torch.cuda.synchronize()
+    for part, g, w in zip(("y", "states", "last"), got, want):
+        assert g.dtype == w.dtype == torch.float32, part
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    gy = torch.randn(got[0].shape, generator=gen, device=cuda)
+    grads = scan_hillis.selective_scan_hillis_bwd(*args, got[1], gy, **vkw)
+    want = selective_scan_hillis_bwd_ref(*args, got[1], gy, **vkw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, grads, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+    return args, got, gy, vkw
+
+
+@pytest.mark.parametrize("width", ["narrow", "wide"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(HILLIS_FWD_EDGES))
+def test_bf16_mode_hillis_forward_matches_plain_version_at_edge_shapes(
+        cuda, shape, dtype, width):
+    """K3 in the mode, and K4 from its chunk states: the state carried in
+    bfloat16 comes out the plain version's bits in practice; 1e-4 holds."""
+    _bf16_hillis(cuda, HILLIS_FWD_EDGES[shape], dtype, width)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", sorted(HILLIS_BWD_EDGES))
+def test_bf16_mode_hillis_backward_matches_plain_version_at_edge_shapes(
+        cuda, shape, dtype):
+    _bf16_hillis(cuda, HILLIS_BWD_EDGES[shape], dtype, batch=2)
+
+
+@pytest.mark.parametrize("stage", range(len(STAGE_SHAPES)))
+def test_bf16_mode_at_the_stage_shapes_at_batch_1(cuda, stage):
+    """K1 + K2 and K3 + K4 in the mode at each medmamba_t stage shape at
+    batch 1 (8-channel blocks in the forward): a demo request's shapes."""
+    dpg, l = STAGE_SHAPES[stage]
+    _bf16_backward(cuda, dict(b=1, dpg=dpg, l=l,
+                              reverse_dirs=(False, True)))
+    _bf16_hillis(cuda, dict(dpg=dpg, l=l), "float32", batch=1)
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_bf16_mode_backward_is_deterministic(cuda, scan):
+    """K2 and K4 in the mode give the same bits on every launch."""
+    if scan == "ssd":
+        args, states, gy, kw = _bf16_backward(
+            cuda, dict(dpg=40, l=200, reverse_dirs=(False, True)))
+        first, second = (scan_cuda.selective_scan_bwd(
+            *args, states, gy, delta_softplus=True, compute=BF16, **kw)
+            for _ in range(2))
+    else:
+        args, fwd, gy, vkw = _bf16_hillis(
+            cuda, dict(dpg=40, l=200, valid_len=180), "float32", batch=3)
+        first, second = (scan_hillis.selective_scan_hillis_bwd(
+            *args, fwd[1], gy, **vkw) for _ in range(2))
+    for name, a, b in zip(NAMES, first, second):
+        assert torch.equal(a, b), name
+
+
+def test_bf16_mode_moves_the_kernels(cuda):
+    """The mode is live on the card: K1's and K3's y, K2's and K4's
+    gradients differ from the float32 instantiations' by at least 1e-3 of
+    scale; dD, which no rounding reaches, keeps its bits."""
+    x = _inputs(cuda, dpg=40, l=200)
+    args = [x[k] for k in NAMES]
+    kw = dict(delta_softplus=True, reverse_dirs=(False, True))
+    out = {}
+    for compute in ("float32", BF16):
+        y, _, states = scan_cuda.selective_scan_fwd(
+            **x, return_states=True, compute=compute, **kw)
+        gy = torch.ones_like(y)
+        g = scan_cuda.selective_scan_bwd(*args, states, gy, compute=compute,
+                                         **kw)
+        yh, hst, _ = scan_hillis.selective_scan_hillis_fwd(
+            *args, delta_softplus=True, compute=compute)
+        gh = scan_hillis.selective_scan_hillis_bwd(
+            *args, hst, gy, delta_softplus=True, compute=compute)
+        out[compute] = (y, g, yh, gh)
+    torch.cuda.synchronize()
+    f32, b16 = out["float32"], out[BF16]
+    for i in (0, 2):
+        scale = f32[i].abs().max()
+        assert (b16[i] - f32[i]).abs().max() >= 1e-3 * scale
+    for i in (1, 3):
+        for name, a, b in zip(NAMES, b16[i], f32[i]):
+            if name == "D":
+                assert torch.equal(a, b)
+            else:
+                assert (a - b).abs().max() >= 1e-3 * b.abs().max(), name
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_selector_runs_the_bf16_mode_forward_and_backward(cuda, scan,
+                                                          monkeypatch):
+    """Under MEDMAMBA_SCAN_COMPUTE=bfloat16 the dispatcher's autograd path
+    gives the plain versions' y and gradients in the mode (K2's: the
+    explicit adjoint, not autograd through the plain scan's roundings), and
+    the backward keeps the forward's mode after the variable is unset; its
+    no-grad path (the graph op) gives the kernel's bits in the mode."""
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    monkeypatch.setenv("MEDMAMBA_SCAN_COMPUTE", BF16)
+    x = _inputs(cuda)
+    xk = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+    kw = dict(delta_softplus=True, reverse_dirs=(False, True))
+    y = selective_scan(**xk, **kw)
+    monkeypatch.delenv("MEDMAMBA_SCAN_COMPUTE")
+    gy = torch.randn(y.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(5), device=cuda)
+    y.backward(gy)
+    args = [x[k] for k in NAMES]
+    if scan == "ssd":
+        yr = ss._plain_scan(*args, True, False, (False, True), 1, None,
+                            None, BF16)
+        states = selective_scan_states_ref(
+            *args[:5], x["delta_bias"], True, (False, True), compute=BF16)
+        want = selective_scan_bwd_ref(*args, states, gy, delta_softplus=True,
+                                      reverse_dirs=(False, True),
+                                      compute=BF16)
+    else:
+        xr = {k: v.clone().requires_grad_(True) for k, v in x.items()}
+        yr = ss._hillis_scan(*(xr[k] for k in NAMES), True, False,
+                             (False, True), 1, None,
+                             selective_scan_hillis_ref,
+                             selective_scan_hillis_bwd_ref, BF16)
+        yr.backward(gy)
+        want = [xr[k].grad for k in NAMES]
+    torch.testing.assert_close(y.detach(), yr.detach(), rtol=1e-4,
+                               atol=1e-4)
+    for k, w in zip(NAMES, want):
+        _rel_close(xk[k].grad, w, 1e-4)
+    monkeypatch.setenv("MEDMAMBA_SCAN_COMPUTE", BF16)
+    with torch.no_grad():
+        got = selective_scan(**x, **kw)
+    if scan == "ssd":
+        want = scan_cuda.selective_scan_fwd(**x, compute=BF16, **kw)[0]
+    else:
+        want = ss._hillis_scan(*(x[k] for k in NAMES), True, False,
+                               (False, True), 1, None,
+                               scan_hillis.selective_scan_hillis_fwd,
+                               scan_hillis.selective_scan_hillis_bwd, BF16)
+    assert torch.equal(got, want)
+
+
+def test_exported_model_keeps_the_bf16_mode(cuda, monkeypatch):
+    """A tiny VSSM exported on the card under the mode: its scan nodes
+    carry it, and the artifact, called with the variable unset, gives the
+    live forward's probabilities in the mode."""
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.utils.export import export_forward, load_exported
+
+    model = tv.VSSM(num_classes=3, depths=(1, 2), dims=(16, 32)).eval()
+    monkeypatch.setenv("MEDMAMBA_SCAN_COMPUTE", BF16)
+    exp = load_exported(export_forward(model, image_size=32, device="cuda"))
+    model = model.to(cuda)
+    x = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    with torch.no_grad():
+        want = torch.softmax(model(preprocess(x, size=32)), -1)
+    monkeypatch.delenv("MEDMAMBA_SCAN_COMPUTE")
+    assert exp.scan_compute() == [BF16] * 6
+    torch.testing.assert_close(exp.call(x), want, rtol=1e-5, atol=1e-5)
+
+
+def test_float32_instantiations_keep_the_earlier_builds_bits(cuda):
+    """The float32 mode of K1-K4 against the sources of the commit before
+    the mode, written into ``_build/earlier`` as
+    ``tools/earlier_kernels.py`` says: the same registers for every
+    float32 instantiation and the same bits at the medmamba_t stage
+    shapes."""
+    import os
+
+    from medmamba_tpu_torch.ops import cuda_build
+    from medmamba_tpu_torch.tools import earlier_kernels
+
+    src = os.path.join(cuda_build.BUILD_DIR, "earlier")
+    if not os.path.isfile(os.path.join(src, scan_cuda.FWD_SOURCE)):
+        pytest.skip(f"no earlier sources in {src}")
+    assert earlier_kernels.main(["--dir", src, "--no_timing"]) == 0
