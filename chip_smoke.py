@@ -129,7 +129,32 @@ Phases, in order; any failure exits non-zero:
      launch counts; medmamba_t's logits and its first training step's loss
      in the mode within 2e-2 of the float32 mode's, on both kernel pairs;
      and the eval forward and the bfloat16-block train step timed in the
-     mode, on both pairs, with the device time by kernel family on K1/K2.
+     mode, on both pairs, with the device time by kernel family on K1/K2;
+ 23. the compiled steps (``utils/graphs.py``, ``train/trainer.py:
+     compile_forward``, ``compile_train_step``), which the CLIs of phases
+     4, 8, 13, 14, 19, 20 and 22 already ran: the graphed softmax forward
+     of medmamba_t at batch 64 and 1 on ssd and hillis equals the eager
+     forward bit for bit, and a replay makes exactly 20 K1 (K3) launches
+     by the counters and by the profiler (one replay of each graph, in a
+     fresh process: ``profile_graphs``); both timed in turns
+     (eager, graphed, graphed, eager); the graphed train step (bf16 blocks
+     and float32, augmentation, 224^2, batch 64, ssd and hillis): 10 steps
+     from one state dict and one generator seed eagerly twice and graphed
+     once, the graph bit for bit where the eager runs agree; where they do
+     not (float32), the parameters whose first-step gradients differ are
+     named, with and without cuDNN's deterministic algorithms, and the
+     three runs made again under ``cudnn.deterministic``, where the graph
+     is held to the eager bits (else each loss within 1e-4 of its scale);
+     exact launches per replay (20 K1, 20 K2, 1 K5; hillis 20 K3, 20 K4,
+     1 K5) by the counters and the profiler; the step timed in turns with
+     the eager one, its busy share, each step's wall with a sync after
+     it; each graph's capture seconds and pool bytes; the state guard's
+     cost and its raise after ``opt.load_state_dict``; the demo request
+     of phase 20 split into its graphed forward, its eager Grad-CAM and
+     the rest; ``BatchLoader.epoch``'s host time per batch on phase 8's
+     NPZ split and phase 19's PNG tree.
+On the card every CLI runs its steps as CUDA graphs (phase 23); the timing
+phases 5, 10, 16 and 22 time the eager functions, as before.
 Each phase's header says when it started. The line before the last lists
 every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
 times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers),
@@ -2013,6 +2038,444 @@ def phase_bf16_model(root: str):
     return out
 
 
+# phase 23: kernels a launch of each family makes (K2 is a walk and a
+# reduction, K4 an expansion, a walk and a reduction); the steps held eager
+# against graphed; where two eager runs themselves disagree, each step's
+# loss within this share of its scale
+KERNELS_PER_LAUNCH = {"K1": 1, "K2": 2, "K3": 1, "K4": 3, "K5": 1}
+COMPILED_STEPS = 10
+TOL_COMPILED_LOSS = 1e-4
+LOADER_EPOCHS = 5
+
+
+def check_profiled_launches(label: str, prof: dict, unit: str,
+                            **launches) -> dict:
+    """The profiler's kernels per call of each family against the launches
+    the counters give: exactly, and none of the other scan families."""
+    got = {k: prof[f"family_kernels_per_{unit}"].get(FAMILY[k], 0)
+           / KERNELS_PER_LAUNCH[k] for k in FAMILY}
+    want = {k: launches.get(k, 0) for k in FAMILY}
+    log(f"  {label}: the profiler's launches per {unit} {got}")
+    if got != want:
+        raise SystemExit(f"{label}: the profiler counts {got} launches per "
+                         f"{unit}, expected {want}")
+    return got
+
+
+def in_turns(eager, graphed, reps: int) -> dict:
+    """ms per call of ``eager`` and ``graphed`` timed in turns (eager,
+    graphed, graphed, eager; each ``back_to_back_ms``)."""
+    t = [back_to_back_ms(fn, [None], reps)
+         for fn in (eager, graphed, graphed, eager)]
+    return dict(eager_ms=(t[0] + t[3]) / 2, graph_ms=(t[1] + t[2]) / 2,
+                in_turns_ms=t)
+
+
+def compiled_forward(scan: str, frames, profiles: dict):
+    """The graphed softmax forward of medmamba_t at batch 64 and 1 under
+    ``scan``: the eager forward's bits, 20 launches of its scan kernel per
+    replay by the counters and by the profiler (``profiles``, from
+    ``profile_graphs``), timed in turns with the eager forward. Returns the
+    numbers and, for ssd, the batch-1 CAM's time (the demo request's other
+    part)."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.eval.gradcam import grad_cam
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    k = {"ssd": "K1", "hillis": "K3"}[scan]
+    model = create_model("T", NUM_CLASSES, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    out = {}
+    with scan_kernel(scan):
+        forward = trainer.compile_forward(model)
+        for batch in (BATCH, 1):
+            x = frames[:batch]
+            want = trainer.predict(model, x)[0]
+            got = forward(x, image_size=IMAGE)[0]
+            graph = list(forward.graphs.values())[-1]
+            equal = torch.equal(got, want)
+            log(f"  {scan} forward at batch {batch}: graphed against eager "
+                f"bit for bit {equal} (max|err| "
+                f"{(got - want).abs().max().item():.3e}); capture "
+                f"{graph.capture_s:.3f} s, pool {graph.pool_bytes} B")
+            if not equal:
+                raise SystemExit(f"the graphed {scan} forward at batch "
+                                 f"{batch} differs from the eager one")
+            reset_counts()
+            forward(x, image_size=IMAGE)
+            torch.cuda.synchronize()
+            if read_counts() != expected_counts(**{k: LAUNCHES_PER_FORWARD}):
+                raise SystemExit(f"a {scan} forward replay counted "
+                                 f"{read_counts()}")
+            res = out[batch] = in_turns(
+                lambda _: trainer.predict(model, x),
+                lambda _: forward(x, image_size=IMAGE),
+                10)
+            prof = profiles[f"{scan} forward {batch}"]
+            check_profiled_launches(f"{scan} forward replay at batch "
+                                    f"{batch}", prof, "call",
+                                    **{k: LAUNCHES_PER_FORWARD})
+            res.update(capture_s=graph.capture_s, pool_bytes=graph.pool_bytes,
+                       img_s=batch / res["graph_ms"] * 1e3,
+                       eager_img_s=batch / res["eager_ms"] * 1e3,
+                       busy_share=prof["busy_share_of_kernel_window"],
+                       kernel_ms=prof["kernel_ms_per_call"],
+                       host_wall_ms=prof["host_wall_ms_per_call"])
+            log(f"  {scan} forward at batch {batch}: graphed "
+                f"{res['graph_ms']:.3f} ms ({res['img_s']:.1f} img/s), eager "
+                f"{res['eager_ms']:.3f} ms ({res['eager_img_s']:.1f} img/s); "
+                f"in turns {' '.join(f'{t:.3f}' for t in res['in_turns_ms'])}"
+                f"; graphed busy {100 * res['busy_share']:.1f}%, kernels "
+                f"{res['kernel_ms']:.3f} ms")
+        if scan == "ssd":
+            x = forward(frames[:1], image_size=IMAGE)[1].clone()
+            pred = [int(got.argmax())]
+            times = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                grad_cam(model, x, target_class=np.array(pred))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out["cam_ms"] = statistics.median(times[1:])
+            log(f"  Grad-CAM at batch 1 (eager): {out['cam_ms']:.3f} ms")
+        forward.free()
+    return out
+
+
+def nondeterministic_grads(model, state: dict, images, labels,
+                           seed: int) -> dict:
+    """The parameters whose first-step gradient bits differ between two
+    eager runs from one state and one generator seed, as (module type,
+    parameter) names; again with cuDNN's deterministic algorithms."""
+    import torch
+
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.train.trainer import cross_entropy
+
+    def grads():
+        model.load_state_dict(state)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = preprocess(images, size=IMAGE, augment=True, generator=gen)
+        cross_entropy(model(x, labels >= 0, generator=gen), labels).backward()
+        return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+    def differing():
+        a, b = grads(), grads()
+        return sorted({f"{type(model.get_submodule(n.rsplit('.', 1)[0])).__name__}"
+                       f".{n.rsplit('.', 1)[1]}"
+                       for n in a if not torch.equal(a[n], b[n])})
+    out = {"default": differing()}
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["cudnn_deterministic"] = differing()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    return out
+
+
+def three_runs(label: str, model, state: dict, images, labels,
+               per_step: dict) -> dict:
+    """COMPILED_STEPS train steps of ``model`` from ``state`` and one
+    generator seed, eagerly twice and graphed once: exact launch counts in
+    each run; the graph bit for bit where the eager runs agree (exits
+    otherwise); each graphed loss's error and eager run 2's, of the loss's
+    scale. The result keeps the graphed step's (compiled step, optimizer,
+    generator, call) under ``graphed``."""
+    import torch
+
+    from medmamba_tpu_torch.train import trainer
+
+    runs = []
+    for graphed in (False, False, True):
+        model.load_state_dict(state)
+        opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+        gen = torch.Generator(device="cuda")
+        if graphed:
+            step = trainer.compile_train_step(model, opt, generator=gen)
+
+            def call(_=None):
+                return step(images, labels, augment=True, image_size=IMAGE)
+        else:
+            def call(_=None):
+                return trainer.train_step(model, opt, images, labels,
+                                          generator=gen, augment=True,
+                                          image_size=IMAGE)
+        gen.manual_seed(SEED + 13)
+        reset_counts()
+        losses, walls = [], []
+        for _ in range(COMPILED_STEPS):
+            t0 = time.perf_counter()
+            losses.append(call().clone())
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if counts != expected_counts(**{
+                k: COMPILED_STEPS * n for k, n in per_step.items()}):
+            raise SystemExit(f"{label}: {COMPILED_STEPS} "
+                             f"{'graphed' if graphed else 'eager'} steps "
+                             f"counted {counts}")
+        runs.append(dict(losses=torch.stack(losses).cpu(), walls=walls,
+                         params={k: v.clone() for k, v in
+                                 model.state_dict().items()}))
+
+    def same(a, b):
+        return torch.equal(a["losses"], b["losses"]) and all(
+            torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+    e1, e2, g = runs
+    res = dict(eager_bitwise=same(e1, e2), graph_bitwise=same(e1, g),
+               losses_eager=e1["losses"].tolist(),
+               losses_graph=g["losses"].tolist(),
+               graphed=(step, opt, gen, call))
+    scale = e1["losses"].abs().clamp_min(1.0)
+    res["loss_err"] = ((g["losses"] - e1["losses"]).abs()
+                       / scale).max().item()
+    res["loss_err_eager"] = ((e2["losses"] - e1["losses"]).abs()
+                             / scale).max().item()
+    for key, run in (("eager", e1), ("graph", g)):
+        w = sorted(run["walls"][1:])
+        res[f"step_wall_ms_{key}"] = dict(median=w[len(w) // 2], min=w[0],
+                                          max=w[-1])
+    log(f"  {label}: {COMPILED_STEPS} steps; two eager runs bit for bit "
+        f"{res['eager_bitwise']}, graphed against eager bit for bit "
+        f"{res['graph_bitwise']}; losses of their scale: graphed "
+        f"{res['loss_err']:.3e}, eager run 2 {res['loss_err_eager']:.3e}; "
+        f"losses {' '.join(f'{v:.6f}' for v in res['losses_graph'])}")
+    if res["eager_bitwise"] and not res["graph_bitwise"]:
+        raise SystemExit(f"{label}: the graphed steps differ from the eager "
+                         "ones, which agree bit for bit")
+    return res
+
+
+def compiled_train(scan: str, name: str, dtype, images, labels,
+                   profiles: dict, guard_check: bool = False) -> dict:
+    """The graphed train step of medmamba_t under ``scan``
+    (``three_runs``). Where the two eager runs disagree, the parameters
+    whose first-step gradients differ are named (with and without cuDNN's
+    deterministic algorithms), and the three runs are made again under
+    ``torch.backends.cudnn.deterministic``: the graph is held to the eager
+    bits where the eager runs agree there, else each loss within
+    TOL_COMPILED_LOSS of its scale. Then, at the default settings: exact
+    launches per replay by the profiler and its busy share of one graphed
+    step (``profiles``, from ``profile_graphs``); timed in turns with the
+    eager step on the same model; the state guard after
+    ``opt.load_state_dict`` (``guard_check``)."""
+    import copy
+
+    import torch
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    fwd, bwd = {"ssd": ("K1", "K2"), "hillis": ("K3", "K4")}[scan]
+    per_step = {fwd: LAUNCHES_PER_FORWARD, bwd: LAUNCHES_PER_FORWARD,
+                "K5": 1}
+    label = f"{scan} {name} train step"
+    with scan_kernel(scan):
+        model = create_model("T", NUM_CLASSES, dtype=dtype, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        state = {k: v.clone() for k, v in model.state_dict().items()}
+        res = three_runs(label, model, state, images, labels, per_step)
+        if not res["eager_bitwise"]:
+            res["nondeterministic"] = nondeterministic_grads(
+                model, state, images, labels, SEED + 13)
+            log(f"  {label}: first-step gradients whose bits differ between "
+                f"eager runs: {res['nondeterministic']['default']}; with "
+                "torch.backends.cudnn.deterministic: "
+                f"{res['nondeterministic']['cudnn_deterministic']}")
+            # again with cuDNN's deterministic algorithms, where the eager
+            # runs can agree bit for bit and the graph is held to their bits
+            torch.backends.cudnn.deterministic = True
+            try:
+                res["cudnn_deterministic"] = three_runs(
+                    label + " (cudnn.deterministic)", model, state, images,
+                    labels, per_step)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            det = res["cudnn_deterministic"]
+            det.pop("graphed")[0].free()
+            held = det if det["eager_bitwise"] else res
+            if not held["eager_bitwise"] and \
+                    held["loss_err"] > TOL_COMPILED_LOSS:
+                raise SystemExit(f"{label}: graphed losses stray "
+                                 f"{held['loss_err']:.3e} from eager (limit "
+                                 f"{TOL_COMPILED_LOSS:g})")
+        step, opt, gen, call = res.pop("graphed")
+        graph = list(step.graphs.values())[0]
+        res.update(capture_s=graph.capture_s, pool_bytes=graph.pool_bytes)
+        res.update(in_turns(
+            lambda _: trainer.train_step(model, opt, images, labels,
+                                         generator=gen, augment=True,
+                                         image_size=IMAGE), call, 2))
+        res.update(img_s=BATCH / res["graph_ms"] * 1e3,
+                   eager_img_s=BATCH / res["eager_ms"] * 1e3)
+        prof = profiles[label]
+        check_profiled_launches(f"{label} replay", prof, "call", **per_step)
+        res.update(busy_share=prof["busy_share_of_kernel_window"],
+                   kernel_ms=prof["kernel_ms_per_call"],
+                   host_wall_ms=prof["host_wall_ms_per_call"],
+                   family_ms=prof["family_ms_per_call"])
+        log(f"  {label}: graphed {res['graph_ms']:.3f} ms "
+            f"({res['img_s']:.1f} img/s), eager {res['eager_ms']:.3f} ms "
+            f"({res['eager_img_s']:.1f} img/s); in turns "
+            f"{' '.join(f'{t:.3f}' for t in res['in_turns_ms'])}; graphed "
+            f"busy {100 * res['busy_share']:.1f}%, kernels "
+            f"{res['kernel_ms']:.3f} ms; capture {res['capture_s']:.3f} s, "
+            f"pool {res['pool_bytes']} B; a step with a sync after it: "
+            f"graphed {res['step_wall_ms_graph']}, eager "
+            f"{res['step_wall_ms_eager']} ms")
+        if guard_check:
+            t0 = time.perf_counter()
+            for _ in range(100):
+                graph.guard.check()
+            res["guard_us"] = (time.perf_counter() - t0) * 1e4
+            opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+            try:
+                call()
+            except RuntimeError as e:
+                res["guard"] = str(e)
+            else:
+                raise SystemExit("a replay after opt.load_state_dict did not "
+                                 "raise")
+            log(f"  state guard: {res['guard_us']:.1f} us a check; after "
+                f"opt.load_state_dict a replay raises: {res['guard']}")
+        step.free()
+        del model, opt, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def loader_ms(root: str) -> dict:
+    """Host ms per batch of ``BatchLoader.epoch`` on phase 8's NPZ split
+    and phase 19's PNG tree (batch 64, as the CLIs load them), over
+    LOADER_EPOCHS epochs, nothing consumed on the card."""
+    from medmamba_tpu_torch.data.datasets import open_dataset
+    from medmamba_tpu_torch.data.loader import BatchLoader
+
+    write_train_split(root)
+    tree = write_image_tree(root)
+    out = {}
+    for label, data in (("npz_28", root), ("png_224", tree)):
+        ds, _ = open_dataset(data, "train", load_size=IMAGE)
+        loader = BatchLoader(ds, BATCH, shuffle=True, seed=SEED)
+        t0 = time.perf_counter()
+        n = sum(1 for e in range(LOADER_EPOCHS) for _ in loader.epoch(e))
+        out[label] = dict(ms_per_batch=(time.perf_counter() - t0) * 1e3 / n,
+                          batches=n, images=len(ds))
+    log(f"  BatchLoader.epoch, host ms per batch of {BATCH}: NPZ 28^2 "
+        f"{out['npz_28']['ms_per_batch']:.3f} ({out['npz_28']['batches']} "
+        f"batches), PNG 224^2 tree {out['png_224']['ms_per_batch']:.3f} "
+        f"({out['png_224']['images']} images a batch)")
+    return out
+
+
+def compiled_inputs():
+    """Phase 23's inputs on the card: uint8 frames for the forward, and a
+    uint8 batch and its labels for the train step."""
+    import numpy as np
+    import torch
+
+    frames = torch.from_numpy(np.random.default_rng(SEED + 12).integers(
+        0, 256, (BATCH, IMAGE, IMAGE, 3), dtype=np.uint8)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    images = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen,
+                           device="cuda")
+    return frames, images, labels
+
+
+TRAIN_CONFIGS = (("bf16+aug", "bfloat16"), ("fp32+aug", "float32"))
+
+
+def profile_graphs() -> dict:
+    """One replay of each graph of phase 23 under ``torch.profiler``
+    (``profile_families``, by kernel family), one session of one replay
+    each, in the process that calls it: phase 23 runs it in a fresh
+    process, since the tracer of a process that has opened many sessions
+    drops events. Keys: "<scan> forward <batch>" and "<scan> <config>
+    train step"."""
+    import torch
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    frames, images, labels = compiled_inputs()
+    out = {}
+    for scan in ("ssd", "hillis"):
+        with scan_kernel(scan):
+            model = create_model("T", NUM_CLASSES, device="cuda",
+                                 generator=torch.Generator().manual_seed(SEED))
+            forward = trainer.compile_forward(model)
+            for batch in (BATCH, 1):
+                x = frames[:batch]
+                forward(x, image_size=IMAGE)
+                out[f"{scan} forward {batch}"] = profile_families(
+                    lambda: forward(x, image_size=IMAGE), "call", steps=1)
+            forward.free()
+            for name, dtype in TRAIN_CONFIGS:
+                model = create_model(
+                    "T", NUM_CLASSES, dtype=getattr(torch, dtype),
+                    device="cuda",
+                    generator=torch.Generator().manual_seed(SEED))
+                opt, _ = trainer.make_optimizer(model.parameters(), 1e-3,
+                                                True)
+                step = trainer.compile_train_step(
+                    model, opt, generator=torch.Generator(
+                        device="cuda").manual_seed(SEED + 13))
+                step(images, labels, augment=True, image_size=IMAGE)
+                out[f"{scan} {name} train step"] = profile_families(
+                    lambda: step(images, labels, augment=True,
+                                 image_size=IMAGE), "call", steps=1)
+                step.free()
+    return out
+
+
+def phase_compiled(root: str, demo_ms: float) -> dict:
+    """Phase 23 (see the docstring)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    profiles = json.loads(run(
+        [sys.executable, "-c", "import json, chip_smoke; print('result ' + "
+         "json.dumps(chip_smoke.profile_graphs()))"], {},
+        "phase 23's profiler process").split("result ", 1)[1])
+    log(f"  one replay of each graph under the profiler, in a fresh process "
+        f"({time.perf_counter() - t0:.1f} s)")
+    frames, images, labels = compiled_inputs()
+    out = {"forward": {scan: compiled_forward(scan, frames, profiles)
+                       for scan in ("ssd", "hillis")}}
+    out["train"] = {}
+    for scan in ("ssd", "hillis"):
+        for name, dtype in TRAIN_CONFIGS:
+            out["train"][f"{scan} {name}"] = compiled_train(
+                scan, name, getattr(torch, dtype), images, labels, profiles,
+                guard_check=(scan, name) == ("hillis", "fp32+aug"))
+    b1 = out["forward"]["ssd"][1]
+    cam = out["forward"]["ssd"]["cam_ms"]
+    out["demo"] = dict(request_ms=demo_ms, forward_ms=b1["graph_ms"],
+                       forward_eager_ms=b1["eager_ms"], cam_ms=cam,
+                       rest_ms=demo_ms - b1["graph_ms"] - cam)
+    log(f"  demo request (phase 20, graphed forward) {demo_ms:.1f} ms: the "
+        f"batch-1 forward {b1['graph_ms']:.3f} ms graphed (eager "
+        f"{b1['eager_ms']:.3f}), the Grad-CAM {cam:.3f} ms, the rest "
+        f"(decode, PNGs, HTTP) {out['demo']['rest_ms']:.3f} ms")
+    out["loader"] = loader_ms(root)
+    step = out["train"]["ssd bf16+aug"]["graph_ms"]
+    log(f"  the loader beside the graphed ssd bf16 step ({step:.3f} ms): NPZ "
+        f"{out['loader']['npz_28']['ms_per_batch']:.3f} ms a batch, PNG "
+        f"{out['loader']['png_224']['ms_per_batch']:.3f} ms")
+    return out
+
+
 def sum_rows(rows: list) -> dict:
     """Probe rows summed: one call of each case or probe."""
     out = {k: sum(r[k] for r in rows)
@@ -2155,16 +2618,16 @@ def busy_us(intervals) -> float:
     return total
 
 
-def profile_families(fn, unit: str) -> dict:
+def profile_families(fn, unit: str, steps: int = PROFILE_STEPS) -> dict:
     """Device time per call of ``fn`` by kernel family, from
-    ``torch.profiler`` over PROFILE_STEPS calls."""
+    ``torch.profiler`` over ``steps`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -2173,24 +2636,27 @@ def profile_families(fn, unit: str) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise SystemExit("the profiler recorded no device activity")
-    by_family, by_name = {}, {}
+    by_family, by_name, launches = {}, {}, {}
     for e in kernels:
-        dur = (e.time_range.end - e.time_range.start) / 1e3 / PROFILE_STEPS
+        dur = (e.time_range.end - e.time_range.start) / 1e3 / steps
         fam = family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + dur
+        launches[fam] = launches.get(fam, 0) + 1
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + dur)
     spans = [(e.time_range.start, e.time_range.end) for e in kernels]
     window = max(e for _, e in spans) - min(s for s, _ in spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP_KERNELS]
     return {
-        f"host_wall_ms_per_{unit}": wall_ms / PROFILE_STEPS,
+        f"host_wall_ms_per_{unit}": wall_ms / steps,
         f"kernel_ms_per_{unit}": sum(by_family.values()),
         "busy_share_of_kernel_window": busy_us(spans) / window,
         f"family_ms_per_{unit}": dict(
             sorted(by_family.items(), key=lambda kv: -kv[1])),
+        f"family_kernels_per_{unit}": {
+            fam: n / steps for fam, n in launches.items()},
         "top_kernels": [{"name": k[:120],
-                         f"launches_per_{unit}": n / PROFILE_STEPS,
+                         f"launches_per_{unit}": n / steps,
                          f"ms_per_{unit}": t} for k, (n, t) in top]}
 
 
@@ -2433,6 +2899,11 @@ def main() -> int:
         {k: {"eval": v["eval_profile"], "train": v["train_profile"]}
          for k, v in bf16_model.items()}))
 
+    header("phase 23: compiled steps (CUDA graphs of the forward and the "
+           "train step against eager, on both kernel pairs)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        compiled = phase_compiled(root, demo_out["median_ms"])
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -2528,6 +2999,7 @@ def main() -> int:
             "folder_eval": cams["folder_eval"]},
         "demo": demo_out,
         "export": export_out,
+        "compiled": compiled,
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
         "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()},
         "bf16_compute": {scan: {k: v[k] for k in (

@@ -5,8 +5,10 @@
 A standard-library HTTP server: upload an image, get class probabilities and
 a Grad-CAM overlay (target = the predicted class or a manual index), or pick
 a random image from ``--test_dir`` (``GET /random?mode=gt|pred|manual``).
-Runs on the card (``--device cuda``, the default; raises without one) or,
-when asked, on the CPU. Pages carry their images as PNGs written with
+Runs on the card (``--device cuda``, the default; raises without one),
+where the softmax forward is one CUDA graph (``train/trainer.py:
+compile_forward``) and the Grad-CAM runs eagerly, or, when asked, on the
+CPU. Pages carry their images as PNGs written with
 ``utils/png.py``; an uploaded PNG already at ``--image_size`` square is
 decoded without PIL, any other image needs PIL. ``--scan_tau`` and
 ``--tau_gate`` are accepted for the JAX CLI's flag surface and do nothing:
@@ -58,10 +60,10 @@ def build_app(args):
     import numpy as np
     import torch
 
-    from medmamba_tpu_torch.data.transforms import preprocess
     from medmamba_tpu_torch.eval import gradcam
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train.checkpoint import restore_params
+    from medmamba_tpu_torch.train.trainer import forward_fn
     from medmamba_tpu_torch.utils import png
     from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -74,17 +76,17 @@ def build_app(args):
     name_to_idx = {str(k): int(v) for k, v in class_indices.items()}
     model = create_model(args.medmb_size, num_classes, device=device)
     model.load_state_dict(state_dict, strict=True)
-    model.eval()
+    # the batch-1 softmax forward: one CUDA graph on the card
+    forward = forward_fn(model, device, image_size=args.image_size)
 
     def infer(img_bytes: bytes, target: int):
         """(img, overlay, probs, pred, tc): the uint8 input and overlay,
         the softmax probabilities, the predicted class and the CAM's
         target class."""
         img = png.load_rgb(img_bytes, args.image_size)
-        x = preprocess(torch.from_numpy(img[None]).to(device),
-                       size=args.image_size)
-        with torch.no_grad():
-            probs = torch.softmax(model(x), -1)[0].cpu().numpy()
+        probs, x = forward(torch.from_numpy(img[None]))
+        probs = probs[0].cpu().numpy()
+        x = x.clone()     # the graph's buffer; the CAM runs eagerly on it
         pred = int(probs.argmax())
         tc = pred if target < 0 else int(target)
         cam = gradcam.grad_cam(model, x, target_class=np.array([tc]))[0]

@@ -4,7 +4,9 @@ Counterpart of ``medmamba_tpu/cli/evaluate.py``: load a ``.pth`` checkpoint,
 evaluate a val/test split, print overall accuracy, per-class
 precision/sensitivity/specificity/F1 and macro AUC, and optionally save the
 heatmap. Runs on the card (``--device cuda``, the default; raises without
-one) or, when asked, on the CPU.
+one), where the softmax forward is one CUDA graph
+(``train/trainer.py: compile_forward``), or, when asked, eagerly on the
+CPU.
 
 Usage:
     python -m medmamba_tpu_torch.cli.evaluate --checkpoint_path weights.pth \
@@ -63,10 +65,10 @@ def main(argv=None):
 
     from medmamba_tpu_torch.data.datasets import open_dataset
     from medmamba_tpu_torch.data.loader import BatchLoader
-    from medmamba_tpu_torch.data.transforms import preprocess, resize
     from medmamba_tpu_torch.eval.metrics import ConfusionMatrix
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train.checkpoint import restore_params
+    from medmamba_tpu_torch.train.trainer import forward_fn
     from medmamba_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -79,32 +81,21 @@ def main(argv=None):
 
     model = create_model(args.medmb_size, num_classes, device=device)
     model.load_state_dict(state_dict, strict=True)
-    model.eval()
-
-    imagenet_mean = torch.tensor([0.485, 0.456, 0.406], device=device)
-    imagenet_std = torch.tensor([0.229, 0.224, 0.225], device=device)
-
-    def prep(images: torch.Tensor) -> torch.Tensor:
-        if args.imagenet_preproc:
-            # Resize(256) + CenterCrop(image_size) + ImageNet normalize
-            x = resize(images.float(), 256)
-            off = (256 - args.image_size) // 2
-            x = x[:, off:off + args.image_size, off:off + args.image_size, :]
-            return (x / 255.0 - imagenet_mean) / imagenet_std
-        return preprocess(images, size=args.image_size)
+    # on the card one CUDA graph serves the split: the loader pads the final
+    # batch to the full batch
+    forward = forward_fn(model, device, image_size=args.image_size,
+                         imagenet_preproc=args.imagenet_preproc)
 
     cm = ConfusionMatrix(num_classes, labels=labels)
     loader = BatchLoader(ds, args.batch_size, shuffle=False)
     kept = []
-    with torch.inference_mode():
-        for images, trues in loader.epoch(0):
-            x = prep(torch.from_numpy(images).to(device))
-            probs = torch.softmax(model(x), dim=-1).cpu().numpy()
-            # the loader pads the final partial batch with label -1: padded
-            # rows stay out of the metrics
-            valid = trues >= 0
-            cm.update(probs.argmax(1)[valid], trues[valid], probs[valid])
-            kept.append(probs[valid])
+    for images, trues in loader.epoch(0):
+        probs = forward(torch.from_numpy(images))[0].cpu().numpy()
+        # the loader pads the final partial batch with label -1: padded
+        # rows stay out of the metrics
+        valid = trues >= 0
+        cm.update(probs.argmax(1)[valid], trues[valid], probs[valid])
+        kept.append(probs[valid])
 
     print(cm.summary())
     if args.plot:

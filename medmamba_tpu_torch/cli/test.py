@@ -8,7 +8,9 @@ layer (the last conv-branch 1x1 of the last block, before its ReLU) or at
 ``--target_layers``. Each ``gradcam_{i}.png`` holds the input and the
 overlay side by side, written with ``utils/png.py`` (the JAX CLI draws a
 titled matplotlib figure instead). Runs on the card (``--device cuda``, the
-default; raises without one) or, when asked, on the CPU. A PNG already at
+default; raises without one), where the softmax forward is one CUDA graph
+(``train/trainer.py: compile_forward``) and the Grad-CAM runs eagerly, or,
+when asked, on the CPU. A PNG already at
 ``--image_size`` square is decoded without PIL.
 
 Usage:
@@ -59,10 +61,10 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from medmamba_tpu_torch.data.transforms import preprocess
     from medmamba_tpu_torch.eval.gradcam import grad_cam, show_cam_on_image
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train.checkpoint import restore_params
+    from medmamba_tpu_torch.train.trainer import forward_fn
     from medmamba_tpu_torch.utils import png
     from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -72,7 +74,8 @@ def main(argv=None):
     model = create_model(args.medmb_size, args.num_classes, device=device)
     state_dict, _ = restore_params(args.checkpoint_path)
     model.load_state_dict(state_dict, strict=True)
-    model.eval()
+    # the batch-1 softmax forward: one CUDA graph on the card
+    forward = forward_fn(model, device, image_size=args.image_size)
 
     paths = []
     for base, _, files in os.walk(args.test_dir):
@@ -90,10 +93,9 @@ def main(argv=None):
         t0 = time.perf_counter()
         with open(path, "rb") as f:
             img = png.load_rgb(f.read(), args.image_size)
-        x = preprocess(torch.from_numpy(img[None]).to(device),
-                       size=args.image_size)
-        with torch.no_grad():
-            probs = torch.softmax(model(x), -1)[0].cpu().numpy()
+        probs, x = forward(torch.from_numpy(img[None]))
+        probs = probs[0].cpu().numpy()
+        x = x.clone()     # the graph's buffer; the CAM runs eagerly on it
         pred = int(probs.argmax())
         conf = float(probs[pred])
 

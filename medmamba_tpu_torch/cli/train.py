@@ -5,7 +5,9 @@ Counterpart of ``medmamba_tpu/cli/train.py``, with its flag surface (plus
 the per-epoch validation, early stopping, the best/last checkpoint lifecycle
 and ``class_indices.json``. Checkpoints are ``.pth`` files in the reference
 schema (``train/checkpoint.py``), which ``cli.evaluate`` reads. Runs on the
-card (``--device cuda``, the default; raises without one) or, when asked, on
+card (``--device cuda``, the default; raises without one), where the train
+step and the eval step are CUDA graphs (``train/trainer.py:
+compile_train_step``, ``compile_eval_step``), or, when asked, eagerly on
 the CPU.
 
 Usage:
@@ -111,7 +113,9 @@ def main(argv=None):
     from medmamba_tpu_torch.data.loader import BatchLoader
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train import checkpoint as ckpt
-    from medmamba_tpu_torch.train.trainer import (eval_step, make_optimizer,
+    from medmamba_tpu_torch.train.trainer import (compile_eval_step,
+                                                  compile_train_step,
+                                                  eval_step, make_optimizer,
                                                   train_step)
     from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -194,6 +198,29 @@ def main(argv=None):
     # the device that draws them, seeded anew from --seed and the epoch so
     # that a resumed run draws what the uninterrupted run would have
     generator = torch.Generator(device=device)
+    static = dict(image_size=args.image_size)
+    if device.type == "cuda":
+        # one CUDA graph each for the train and the eval step, captured at
+        # their first call (after the resume above: the graphs hold the
+        # tensors the model and the optimizer have then)
+        compiled_train = compile_train_step(model, opt, generator=generator)
+        compiled_eval = compile_eval_step(model)
+
+        def run_train(images, labels):
+            return compiled_train(images, labels, augment=args.augmentation,
+                                  **static)
+
+        def run_eval(images, labels):
+            return compiled_eval(images, labels, **static)
+    else:
+        def run_train(images, labels):
+            return train_step(model, opt, images.to(device),
+                              labels.to(device), generator=generator,
+                              augment=args.augmentation, **static)
+
+        def run_eval(images, labels):
+            return eval_step(model, images.to(device), labels.to(device),
+                             **static)
     epochs_without_improvement = 0
     final_epoch = start_epoch - 1
     avg_loss = ips = None
@@ -209,13 +236,10 @@ def main(argv=None):
                 else contextlib.nullcontext())
         with prof:
             for images, labels in train_loader.epoch(epoch):
-                loss = train_step(model, opt,
-                                  torch.from_numpy(images).to(device),
-                                  torch.from_numpy(labels).to(device),
-                                  generator=generator,
-                                  augment=args.augmentation,
-                                  image_size=args.image_size)
-                pending.append(loss)
+                loss = run_train(torch.from_numpy(images),
+                                 torch.from_numpy(labels))
+                # a graph's loss is overwritten by its next replay
+                pending.append(loss.clone())
                 nsteps += 1
                 if profiling:
                     prof.step()
@@ -236,9 +260,7 @@ def main(argv=None):
 
         correct = torch.zeros((), dtype=torch.long, device=device)
         for images, labels in val_loader.epoch(0):
-            c, _ = eval_step(model, torch.from_numpy(images).to(device),
-                             torch.from_numpy(labels).to(device),
-                             image_size=args.image_size)
+            c, _ = run_eval(torch.from_numpy(images), torch.from_numpy(labels))
             correct += c
         val_acc = int(correct) / len(val_ds)
         avg_loss = running_loss / max(nsteps, 1)

@@ -3,9 +3,11 @@
 A copy of ``medmamba_tpu/data/native.py`` for the PyTorch port; both load the
 same library from the repository's ``native/`` directory.
 
-Builds on demand with ``make`` on first import if the shared object is missing;
-falls back to None (callers use the pure-Python path) when a toolchain isn't
-available.
+Builds on demand with ``make`` on first use; falls back to None (callers
+use the pure-Python path) when a toolchain isn't available. A process tries
+the build once: where it fails, each later call returns None at once
+instead of running ``make`` again, which cost about 250 ms of host time a
+batch.
 """
 from __future__ import annotations
 
@@ -20,12 +22,14 @@ _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _SO_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libmedmamba_io.so"))
 
 _lib = None
+_tried = False
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib
-    if _lib is not None:
+    global _lib, _tried
+    if _lib is not None or _tried:
         return _lib
+    _tried = True
     # Always run make (a no-op when the .so is fresh): a stale prebuilt
     # library from an older checkout would otherwise load but miss newer
     # symbols (dlopen caches handles, so rebuilding after CDLL is too late).

@@ -16,7 +16,7 @@ one kernel on the card (``ops/rotate.py``, K5).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -49,17 +49,38 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
+# resize matrices and normalisation constants by (what, device), made on
+# their first use: a copy from host memory at every call would cost host
+# time each step, and it is illegal inside a CUDA graph's capture
+_DEVICE_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def _on_device(key: tuple, device: torch.device, make) -> torch.Tensor:
+    t = _DEVICE_CONSTANTS.get((key, device))
+    if t is None:
+        t = _DEVICE_CONSTANTS[(key, device)] = torch.from_numpy(
+            make()).to(device)
+    return t
+
+
+def resize_matrix(in_size: int, out_size: int,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`resize_weights` as a tensor on ``device``, made once."""
+    return _on_device(("resize", in_size, out_size), device,
+                      lambda: resize_weights(in_size, out_size))
+
+
 def resize(x: torch.Tensor, size=224) -> torch.Tensor:
     """Bilinear resize of a float NHWC batch to (size, size), or to
     (height, width) when ``size`` is a pair."""
     _, h, w, _ = x.shape
     out_h, out_w = (size, size) if isinstance(size, int) else size
     if h != out_h:
-        wh = torch.from_numpy(resize_weights(h, out_h)).to(x.device)
-        x = torch.einsum("bhwc,hH->bHwc", x, wh)
+        x = torch.einsum("bhwc,hH->bHwc", x,
+                         resize_matrix(h, out_h, x.device))
     if w != out_w:
-        ww = torch.from_numpy(resize_weights(w, out_w)).to(x.device)
-        x = torch.einsum("bhwc,wW->bhWc", x, ww)
+        x = torch.einsum("bhwc,wW->bhWc", x,
+                         resize_matrix(w, out_w, x.device))
     return x
 
 
@@ -99,3 +120,22 @@ def preprocess(images: torch.Tensor, *, size: int = 224,
             raise ValueError("augment=True needs a torch.Generator")
         x = random_augment(x, generator)
     return normalize(resize(x, size))
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def preprocess_imagenet(images: torch.Tensor, *,
+                        size: int = 224) -> torch.Tensor:
+    """uint8 NHWC batch -> Resize(256) + CenterCrop(size) + ImageNet
+    mean/std, the reference ConfusionMatrix script's recipe, on the batch's
+    device."""
+    x = resize(images.float(), 256)
+    off = (256 - size) // 2
+    x = x[:, off:off + size, off:off + size, :]
+    mean = _on_device(("imagenet_mean",), x.device,
+                      lambda: np.array(IMAGENET_MEAN, np.float32))
+    std = _on_device(("imagenet_std",), x.device,
+                     lambda: np.array(IMAGENET_STD, np.float32))
+    return (x / 255.0 - mean) / std

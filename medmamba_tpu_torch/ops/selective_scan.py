@@ -338,7 +338,13 @@ def _compute_mode(x: torch.Tensor) -> str:
     (``pallas_scan.py:94``): ``bfloat16`` selects the kernels' bfloat16
     mode, anything else float32. On a CPU tensor float32 (see the module's
     docstring)."""
-    if x.is_cuda and os.environ.get("MEDMAMBA_SCAN_COMPUTE") == "bfloat16":
+    return _compute_env() if x.is_cuda else "float32"
+
+
+def _compute_env() -> str:
+    """The compute mode ``MEDMAMBA_SCAN_COMPUTE`` names for a CUDA tensor's
+    scan now: ``bfloat16`` or float32."""
+    if os.environ.get("MEDMAMBA_SCAN_COMPUTE") == "bfloat16":
         return "bfloat16"
     return "float32"
 

@@ -51,7 +51,7 @@ def save_checkpoint(path: str, model: torch.nn.Module,
         "epoch": int(epoch),
         "model_state_dict": {k: v.detach().cpu()
                              for k, v in model.state_dict().items()},
-        "optimizer_state_dict": optimizer.state_dict(),
+        "optimizer_state_dict": portable_optimizer_state(optimizer),
         "best_acc": float(best_acc),
         "num_classes": int(num_classes),
         "class_indices": dict(class_indices),
@@ -77,8 +77,64 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     payload = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(payload["model_state_dict"], strict=True)
     if optimizer is not None:
-        optimizer.load_state_dict(payload["optimizer_state_dict"])
+        load_optimizer_state(optimizer, payload["optimizer_state_dict"])
     return {k: payload[k] for k in META_KEYS if k in payload}
+
+
+_LR_KEYS = ("lr", "initial_lr")
+
+
+def portable_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict:
+    """``optimizer.state_dict()`` as an eager AdamW writes it: a tensor
+    learning rate (and the scheduler's ``initial_lr``) as a float,
+    ``capturable`` false, each ``step`` a float32 tensor on the CPU. The
+    training optimizer of the port (``trainer.make_optimizer``) keeps the
+    rate in a tensor and, on the card, its steps there; a file from either
+    kind resumes the other (:func:`load_optimizer_state`)."""
+    sd = optimizer.state_dict()
+    groups = []
+    for g in sd["param_groups"]:
+        g = dict(g)
+        for k in _LR_KEYS:
+            if torch.is_tensor(g.get(k)):
+                g[k] = float(g[k])
+        if "capturable" in g:
+            g["capturable"] = False
+        groups.append(g)
+    state = {i: {k: (v.detach().to("cpu", torch.float32)
+                     if k == "step" and torch.is_tensor(v) else v)
+                 for k, v in st.items()}
+             for i, st in sd["state"].items()}
+    return {"state": state, "param_groups": groups}
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer,
+                         state_dict: Dict) -> None:
+    """Load ``state_dict`` (from either kind of optimizer) into
+    ``optimizer`` keeping its own kind: its ``capturable`` flag (which
+    places each ``step`` on the parameters' device or the CPU) and its
+    learning rate's type: where it is a tensor, that same tensor, filled in
+    place with the loaded rate; else a float. The moments and steps are new tensors, so a step
+    captured before the load would replay with the old ones: its state
+    guard raises (``utils/graphs.py``); load before the first call."""
+    own = [dict(g) for g in optimizer.param_groups]
+    groups = []
+    for g, mine in zip(state_dict["param_groups"], own):
+        g = dict(g)
+        if "capturable" in mine:
+            g["capturable"] = mine["capturable"]
+        groups.append(g)
+    optimizer.load_state_dict({"state": state_dict["state"],
+                               "param_groups": groups})
+    for g, mine in zip(optimizer.param_groups, own):
+        for k in _LR_KEYS:
+            if k not in g:
+                continue
+            if torch.is_tensor(mine.get(k)):
+                mine[k].fill_(float(g[k]))
+                g[k] = mine[k]
+            elif torch.is_tensor(g[k]):
+                g[k] = float(g[k])
 
 
 def save_class_indices(save_dir: str, class_indices: Dict) -> str:

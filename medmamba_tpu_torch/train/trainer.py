@@ -15,15 +15,32 @@ choices (train.py:187-199):
 One step: on-device preprocessing (flip + rotation when augmenting, resize,
 normalisation) -> forward in train mode -> loss -> backward -> AdamW. The
 random draws (augmentation, DropPath) come from the caller's generator.
+
+``train_step``, ``eval_step`` and ``predict`` (the served softmax forward)
+are the eager steps: the library API on any device, and the reference the
+graphs are held against. ``compile_train_step``, ``compile_eval_step`` and
+``compile_forward`` capture them as CUDA graphs, one per static signature
+(``utils/graphs.py``), the counterpart of the JAX package's ``jax.jit``
+steps; the CLIs run those on the card. The optimizer is built for that:
+its learning rate is a tensor on the parameters' device, which
+``MultiStepLR`` fills in place, and on the card it is ``capturable`` (its
+step counters live on the card), so a captured step reads each epoch's
+rate and makes no host sync.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from medmamba_tpu_torch.data.transforms import preprocess
+from medmamba_tpu_torch.data.transforms import preprocess, preprocess_imagenet
+from medmamba_tpu_torch.utils import graphs
+
+
+# the devices whose AdamW is ``capturable`` (its step counters on the
+# device, no host sync): where torch captures CUDA graphs
+CAPTURABLE_DEVICES = ("cuda",)
 
 
 def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
@@ -33,9 +50,15 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
                               Optional[torch.optim.lr_scheduler.MultiStepLR]]:
     """AdamW as train.py:189-192 and, where ``epoch_schedule`` names
     milestones, the per-epoch MultiStepLR of train.py:194-199 (the caller
-    steps it once per epoch); else no scheduler."""
-    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=0.01 if npz_mode else 1e-4)
+    steps it once per epoch); else no scheduler. The learning rate is a
+    float32 tensor on the parameters' device, and the optimizer is
+    ``capturable`` on CAPTURABLE_DEVICES."""
+    params = list(params)
+    device = params[0].device
+    opt = torch.optim.AdamW(params, lr=torch.tensor(float(lr), device=device),
+                            betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.01 if npz_mode else 1e-4,
+                            capturable=device.type in CAPTURABLE_DEVICES)
     sched = None
     if epoch_schedule:
         sched = torch.optim.lr_scheduler.MultiStepLR(
@@ -79,3 +102,110 @@ def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
     logits = model(preprocess(images_u8, size=image_size))
     correct = ((logits.argmax(-1) == labels) & (labels >= 0)).sum()
     return correct, logits
+
+
+@torch.no_grad()
+def predict(model: torch.nn.Module, images_u8: torch.Tensor, *,
+            image_size: int = 224, imagenet_preproc: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(softmax probabilities, the preprocessed batch) of a uint8 NHWC batch
+    on the model's device, in eval mode: the served forward. With
+    ``imagenet_preproc`` the batch is preprocessed as the reference
+    ConfusionMatrix script does (``preprocess_imagenet``)."""
+    model.eval()
+    prep = preprocess_imagenet if imagenet_preproc else preprocess
+    x = prep(images_u8, size=image_size)
+    return torch.softmax(model(x), dim=-1), x
+
+
+def _snapshot(model: torch.nn.Module,
+              opt: Optional[torch.optim.Optimizer] = None,
+              generators: Sequence[torch.Generator] = ()
+              ) -> Callable[[], None]:
+    """A ``restore()`` that puts back, in place, the model's parameters and
+    buffers (BatchNorm statistics and ``num_batches_tracked`` among them),
+    the optimizer's state and the generators' states as they are now. An
+    optimizer state made after the snapshot is zeroed: AdamW's fresh state
+    (step 0, zero moments)."""
+    tensors = list(model.parameters()) + list(model.buffers())
+    saved = [t.detach().clone() for t in tensors]
+    opt_saved = {} if opt is None else {
+        p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+        for p, st in opt.state.items()}
+    gen_saved = [g.get_state() for g in generators]
+
+    @torch.no_grad()
+    def restore():
+        for t, s in zip(tensors, saved):
+            t.copy_(s)
+        for p, st in ({} if opt is None else opt.state).items():
+            old = opt_saved.get(p)
+            for k, v in st.items():
+                if torch.is_tensor(v):
+                    v.copy_(old[k]) if old is not None else v.zero_()
+        for g, s in zip(generators, gen_saved):
+            g.set_state(s)
+    return restore
+
+
+def compile_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, *,
+                       generator: torch.Generator) -> graphs.CompiledStep:
+    """:func:`train_step` as CUDA graphs: call the result as
+    ``step(images_u8, labels, augment=..., image_size=...)`` (inputs on the
+    host or the card) for the loss, a device scalar that the next call
+    overwrites. The whole step is one graph: preprocessing with K5, the
+    forward, the loss, the backward (``train_step`` sets the gradients to
+    None before it, so they live in the graph's pool) and AdamW. Draws
+    come from ``generator``, registered with each graph; the warm-up's
+    effects on the model, the optimizer and the generator are undone, so
+    the first replay is the first training step."""
+    def capture(images, labels, *, augment=False, image_size=224):
+        restore = _snapshot(model, opt, [generator])
+
+        def step(im, lb):
+            return train_step(model, opt, im, lb, generator=generator,
+                              augment=augment, image_size=image_size)
+        return graphs.Graph(step, (images, labels), label="train step",
+                            model=model, opt=opt, restore=restore,
+                            generators=[generator])
+    return graphs.CompiledStep(
+        "train_step", capture,
+        free=lambda: opt.zero_grad(set_to_none=True))
+
+
+def compile_eval_step(model: torch.nn.Module) -> graphs.CompiledStep:
+    """:func:`eval_step` as CUDA graphs: ``step(images_u8, labels,
+    image_size=...)`` gives (correct, logits) on the card, overwritten by
+    the next call."""
+    def capture(images, labels, *, image_size=224):
+        def step(im, lb):
+            return eval_step(model, im, lb, image_size=image_size)
+        return graphs.Graph(step, (images, labels), label="eval step",
+                            model=model)
+    return graphs.CompiledStep("eval_step", capture)
+
+
+def compile_forward(model: torch.nn.Module) -> graphs.CompiledStep:
+    """:func:`predict` as CUDA graphs: ``forward(images_u8, image_size=...,
+    imagenet_preproc=...)`` gives (probabilities, preprocessed batch) on
+    the card, overwritten by the next call."""
+    def capture(images, *, image_size=224, imagenet_preproc=False):
+        def forward(im):
+            return predict(model, im, image_size=image_size,
+                           imagenet_preproc=imagenet_preproc)
+        return graphs.Graph(forward, (images,), label="forward", model=model)
+    return graphs.CompiledStep("forward", capture)
+
+
+def forward_fn(model: torch.nn.Module, device: torch.device, **static
+               ) -> Callable[[torch.Tensor], Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """The served forward of the CLIs on ``device``: on the card
+    :func:`compile_forward` (one graph per batch shape; its outputs are
+    overwritten by the next call), on the CPU :func:`predict`. Called on a
+    uint8 NHWC batch on the host or the device, with the static arguments
+    of ``predict`` given here."""
+    if device.type == "cuda":
+        forward = compile_forward(model)
+        return lambda images: forward(images, **static)
+    return lambda images: predict(model, images.to(device), **static)

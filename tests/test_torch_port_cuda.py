@@ -3,8 +3,10 @@
 K1 (selective-scan forward, with its tile-entry states), K2 (its backward),
 K3 and K4 (the scan of ``MEDMAMBA_SCAN_KERNEL=hillis`` and its backward,
 held against the JAX package's doubling written in plain PyTorch), K5 (flip
-+ rotation), the probes P1 and P2, the launch counts of a Grad-CAM, and the
-graph ops of ``ops/scan_op.py`` and an exported artifact on the card.
++ rotation), the probes P1 and P2, the launch counts of a Grad-CAM, the
+graph ops of ``ops/scan_op.py`` and an exported artifact on the card, and
+the compiled steps (``-k graph``: CUDA graphs of the forward and the train
+step against the eager ones, bit for bit where two eager runs agree).
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -1092,3 +1094,212 @@ def test_float32_instantiations_keep_the_earlier_builds_bits(cuda):
     if not os.path.isfile(os.path.join(src, scan_cuda.FWD_SOURCE)):
         pytest.skip(f"no earlier sources in {src}")
     assert earlier_kernels.main(["--dir", src, "--no_timing"]) == 0
+
+
+# --- the compiled steps (utils/graphs.py): CUDA graphs against eager ------
+
+GRAPH_VSSM = dict(num_classes=5, depths=(1, 2), dims=(32, 64))
+
+
+def _graph_model(cuda, **kw):
+    return tv.VSSM(**GRAPH_VSSM, generator=torch.Generator().manual_seed(0),
+                   **kw).to(cuda)
+
+
+def _frames(cuda, b, size=64, seed=0):
+    return torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed)
+                         ).to(cuda)
+
+
+@pytest.mark.parametrize("batch", [64, 3, 1])
+def test_graph_forward_gives_the_eager_bits(cuda, batch):
+    """The graphed softmax forward equals the eager one bit for bit, from a
+    host batch as from a device batch, and counts the eager launches (2 K1
+    a block) per replay and none for its warm-up."""
+    from medmamba_tpu_torch.train import trainer
+
+    model = _graph_model(cuda)
+    x = _frames(cuda, batch)
+    want, want_x = trainer.predict(model, x, image_size=64)
+    forward = trainer.compile_forward(model)
+    scan_cuda.LAUNCHES = 0
+    for inp in (x, x.cpu()):
+        got, got_x = forward(inp, image_size=64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got_x, want_x)
+    assert scan_cuda.LAUNCHES == 2 * 6 and len(forward.graphs) == 1
+    forward.free()
+
+
+def _train_runs(cuda, scan, monkeypatch, steps=3, **model_kw):
+    """``steps`` steps eagerly twice and graphed once from one state and
+    one generator seed: (losses, state dict) of each."""
+    import functools
+
+    from medmamba_tpu_torch.train import trainer
+
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    model = _graph_model(cuda, drop_path_rate=0.3, **model_kw)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    x, labels = _frames(cuda, 6, seed=1), torch.tensor([0, 1, 2, 3, 4, -1],
+                                                       device=cuda)
+    runs = []
+    for graphed in (False, False, True):
+        model.load_state_dict(state)
+        opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+        gen = torch.Generator(device=cuda)
+        step = (trainer.compile_train_step(model, opt, generator=gen)
+                if graphed else functools.partial(trainer.train_step, model,
+                                                  opt, generator=gen))
+        gen.manual_seed(7)
+        losses = torch.stack([
+            step(x, labels, augment=True, image_size=64).clone()
+            for _ in range(steps)])
+        runs.append((losses, {k: v.clone()
+                              for k, v in model.state_dict().items()}))
+    step.free()
+    return runs
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_graph_train_step_matches_eager(cuda, scan, remat, monkeypatch):
+    """Three steps with augmentation and drop path: where two eager runs
+    agree bit for bit, the graphed steps give their bits; else each loss
+    within 1e-4 of its scale. With ``use_checkpoint`` too."""
+    (l1, s1), (l2, s2), (lg, sg) = _train_runs(
+        cuda, scan, monkeypatch, use_checkpoint=remat)
+
+    def same(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+    if torch.equal(l1, l2) and same(s1, s2):
+        assert torch.equal(lg, l1) and same(sg, s1)
+    else:
+        assert ((lg - l1).abs() / l1.abs().clamp_min(1)).max() <= 1e-4
+
+
+def test_graph_draws_what_eager_draws_after_manual_seed(cuda):
+    """A graph registered with a generator draws, after ``manual_seed``,
+    what eager calls draw from the same seed, and advances it as they do."""
+    from medmamba_tpu_torch.data.transforms import random_augment
+    from medmamba_tpu_torch.utils import graphs
+
+    model = torch.nn.Linear(2, 2).to(cuda)
+    gen = torch.Generator(device=cuda)
+    x = torch.rand(4, 16, 16, 3, device=cuda) * 255
+
+    def draw(img):
+        return random_augment(img, gen), torch.rand(5, generator=gen,
+                                                    device=cuda)
+    gen.manual_seed(11)
+    want = [[t.clone() for t in draw(x)] for _ in range(2)]
+    graph = graphs.Graph(draw, (x,), label="draw", model=model,
+                         generators=[gen])
+    gen.manual_seed(11)
+    got = [[t.clone() for t in graph(x)] for _ in range(2)]
+    for w, g in zip(want, got):
+        assert all(torch.equal(a, b) for a, b in zip(w, g))
+    assert not torch.equal(got[0][1], got[1][1])
+
+
+def test_graph_recaptures_when_a_scan_variable_changes(cuda, monkeypatch):
+    """Each setting of MEDMAMBA_SCAN_KERNEL / MEDMAMBA_SCAN_COMPUTE gets its
+    own graph, which launches its own kernel; going back replays the first
+    graph."""
+    from medmamba_tpu_torch.train import trainer
+
+    model = _graph_model(cuda)
+    x = _frames(cuda, 2)
+    forward = trainer.compile_forward(model)
+    counts = []
+    for kernel, compute in (("ssd", "float32"), ("hillis", "float32"),
+                            ("hillis", "bfloat16"), ("ssd", "float32")):
+        monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", kernel)
+        monkeypatch.setenv("MEDMAMBA_SCAN_COMPUTE", compute)
+        want = trainer.predict(model, x, image_size=64)[0]
+        scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
+        got = forward(x, image_size=64)[0]
+        counts.append((scan_cuda.LAUNCHES, scan_hillis.HILLIS_LAUNCHES))
+        assert torch.equal(got, want), (kernel, compute)
+    assert counts == [(6, 0), (0, 6), (0, 6), (6, 0)]
+    assert len(forward.graphs) == 3
+    forward.free()
+
+
+def test_graph_state_guard_raises_after_load_state_dict(cuda):
+    import copy
+
+    from medmamba_tpu_torch.train import trainer
+
+    model = _graph_model(cuda)
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+    step = trainer.compile_train_step(
+        model, opt, generator=torch.Generator(device=cuda).manual_seed(0))
+    x, y = _frames(cuda, 2), torch.tensor([0, 1], device=cuda)
+    step(x, y, augment=True, image_size=64)
+    opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+    with pytest.raises(RuntimeError, match="optimizer state"):
+        step(x, y, augment=True, image_size=64)
+    step.free()
+
+
+def test_graph_replay_kernels_seen_by_the_profiler(cuda):
+    """One train replay in the profiler: 2 K1 and 2 K2 launches a block
+    (K2 two kernels a launch) and one K5, as the counters say."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from medmamba_tpu_torch.train import trainer
+
+    model = _graph_model(cuda)
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+    step = trainer.compile_train_step(
+        model, opt, generator=torch.Generator(device=cuda).manual_seed(0))
+    x, y = _frames(cuda, 2), torch.tensor([0, 1], device=cuda)
+    step(x, y, augment=True, image_size=64)
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = rotate.LAUNCHES = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x, y, augment=True, image_size=64)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = [sum(1 for n in names if p in n) for p in (
+        "scan_fwd_kernel", "scan_bwd_kernel", "scan_bwd_reduce_kernel",
+        "rotate_flip_kernel")]
+    assert seen == [6, 6, 6, 1], seen
+    assert (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES,
+            rotate.LAUNCHES) == (6, 6, 1)
+    step.free()
+
+
+def test_graph_train_cli_profile_dir_traces_the_replays(cuda, tmp_path):
+    """``cli.train --profile_dir`` on the card: the trace of steps 3-5,
+    all replays, holds their kernels. The host runs up to two replays
+    ahead of the card, so the window the card's kernels fall in is not
+    exactly steps 3-5: at least one replay's kernels and at most all five
+    steps'."""
+    import json
+    import os
+
+    from medmamba_tpu_torch.cli import train as train_cli
+
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 10), ("val", 2)):
+        np.save(tmp_path / f"{split}_images.npy",
+                rng.integers(0, 256, (n, 28, 28, 3), dtype=np.uint8))
+        np.save(tmp_path / f"{split}_labels.npy",
+                (np.arange(n) % 3).reshape(n, 1).astype(np.int64))
+    prof = tmp_path / "prof"
+    train_cli.main(["--train_dir", str(tmp_path), "--val_dir",
+                    str(tmp_path), "--batch_size", "2", "--epochs", "1",
+                    "--image_size", "32", "--augmentation", "--save_dir",
+                    str(tmp_path / "run"), "--log_every", "0",
+                    "--profile_dir", str(prof)])
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    k1 = sum("scan_fwd_kernel" in n for n in names)
+    k2 = sum("scan_bwd_kernel" in n for n in names)
+    k5 = sum("rotate_flip_kernel" in n for n in names)
+    assert 20 <= k1 <= 5 * 20 and 20 <= k2 <= 5 * 20 and 1 <= k5 <= 5

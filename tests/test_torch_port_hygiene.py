@@ -35,6 +35,7 @@ def test_importing_the_port_loads_no_jax():
             "import medmamba_tpu_torch.utils.export\n"
             "import medmamba_tpu_torch.ops.flops\n"
             "import medmamba_tpu_torch.tools.earlier_kernels\n"
+            "import medmamba_tpu_torch.utils.graphs\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
             "bad += [m.__name__ for m in (probe_vpu, probe_mosaic) "

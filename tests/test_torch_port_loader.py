@@ -63,3 +63,33 @@ def test_epoch_raises_the_datasets_error(loader, exc):
     assert ended, f"epoch() still blocked after {TIMEOUT_S} s"
     assert type(raised) is exc and str(raised) == "dataset failed"
     assert len(seen) == 1 and seen[0][0].shape == (4, 1, 1, 3)
+
+
+def test_native_library_is_built_at_most_once_a_process(monkeypatch,
+                                                        tmp_path):
+    """Where the native library cannot be built, the NPZ gather falls back
+    to numpy after one ``make``, not one ``make`` a batch."""
+    import subprocess
+
+    from medmamba_tpu_torch.data import native
+    from medmamba_tpu_torch.data.datasets import NpzDataset
+
+    calls, run = [], subprocess.run
+
+    def failing_make(argv, *args, **kwargs):
+        if argv[0] != "make":
+            return run(argv, *args, **kwargs)
+        calls.append(argv)
+        raise subprocess.CalledProcessError(2, argv)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False, raising=False)
+    monkeypatch.setattr(native, "_SO_PATH", str(tmp_path / "missing.so"))
+    monkeypatch.setattr(native.subprocess, "run", failing_make)
+    rng = np.random.default_rng(0)
+    np.save(tmp_path / "train_images.npy",
+            rng.integers(0, 256, (10, 4, 4, 3), dtype=np.uint8))
+    np.save(tmp_path / "train_labels.npy", np.arange(10).reshape(10, 1))
+    ds = NpzDataset(str(tmp_path), "train")
+    batches = list(BatchLoader(ds, 3, shuffle=False).epoch(0))
+    assert len(batches) == 4 and len(calls) == 1
+    np.testing.assert_array_equal(batches[1][0], ds.images[3:6])
