@@ -152,13 +152,31 @@ Phases, in order; any failure exits non-zero:
      cost and its raise after ``opt.load_state_dict``; the demo request
      of phase 20 split into its graphed forward, its eager Grad-CAM and
      the rest; ``BatchLoader.epoch``'s host time per batch on phase 8's
-     NPZ split and phase 19's PNG tree.
-On the card every CLI runs its steps as CUDA graphs (phase 23); the timing
-phases 5, 10, 16 and 22 time the eager functions, as before.
+     NPZ split and phase 19's PNG tree;
+ 24. the other models at 224^2: ``cli.cam_backbones`` for ViT-B/16, Swin-T
+     and MobileNetV2 (1000 classes) from random ``.pth`` files the phase
+     writes (the ViT's zero head drawn from normal(0.02)) on a random PNG,
+     each in a process of its own on the card (exit 0, the side-by-side PNG,
+     a CAM in [0, 1] that is not all zero) and in this
+     process on the CPU: logits within 1e-4 of their scale, the card's CAM
+     within TOL_CAM of the CPU's given the card's activation at the target;
+     each backbone's eager forward at batch 64 timed and profiled by kernel
+     family; then ``VSSMSeg`` at its defaults (2 classes, float32): a forward
+     at batch 8 with exactly 40 K1 launches against the plain scan, the
+     backward of a per-pixel cross-entropy with exactly 40 K2 against K2's
+     plain version per parameter (phase 9's method, deterministic forward),
+     40 K3 and no other scan kernel under hillis against the ssd output,
+     the forward at batch 64 timed and profiled (40 K1 by the profiler, K1's
+     share of the device time); 40 K1 a forward by the profiler at both
+     batches. The phase runs in a fresh process (``other_models_process``).
+On the card every CLI runs its steps as CUDA graphs (phase 23), except
+``cli.cam_backbones``, which serves one image a process eagerly; the timing
+phases 5, 10, 16, 22 and 24 time the eager functions.
 Each phase's header says when it started. The line before the last lists
 every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
-times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers),
-and phase 21's; the last line is the JSON ``{"ok": true, "device": {...}}``.
+times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers;
+K1-K3 with ``VSSMSeg``'s launches), and phases 21's and 24's; the last
+line is the JSON ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -2660,6 +2678,288 @@ def profile_families(fn, unit: str, steps: int = PROFILE_STEPS) -> dict:
                          f"ms_per_{unit}": t} for k, (n, t) in top]}
 
 
+# phase 24: the CAM backbones at full width (1000 classes) and VSSMSeg at its
+# defaults (2 classes), 224^2
+CAM_ARCHS = ("vit", "swin", "mobilenet")
+CAM_CLASSES = 1000
+# the card's CAM against the CPU's given the card's activation at the target
+# (check_cam's method): a CAM jumps where an activation downstream of its
+# target crosses a kink (MobileNetV2's head ReLU6), and given the target's
+# activation what is left is float32 arithmetic in another order; 1e-4
+# absolute, the CPU parity tests' CAM tolerance against the JAX package
+TOL_CAM = 1e-4
+SEG_CLASSES = 2
+SEG_BATCH = GRAD_BATCH         # the plain scan's autograd tape stays small
+SEG_LAUNCHES = 40              # 20 SS-Conv-SSM blocks, 2 scans each
+# cli.cam_backbones' main() in a process of its own: argv is an .npz to
+# write and the CLI's arguments; it saves what main() returns and its wall
+CAM_RUNNER = r"""
+import sys, time
+import numpy as np
+from medmamba_tpu_torch.cli import cam_backbones
+
+t0 = time.perf_counter()
+out = cam_backbones.main(sys.argv[2:])
+np.savez(sys.argv[1], logits=out["logits"], cam=out["cam"], pred=out["pred"],
+         seconds=time.perf_counter() - t0)
+"""
+
+
+def write_cam_inputs(root: str) -> tuple:
+    """A random 224^2 PNG and each backbone's random .pth (seed SEED; the
+    ViT's zero-initialised head drawn from normal(0.02), since a zero head
+    gives zero logits and a zero CAM)."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli.cam_backbones import build
+    from medmamba_tpu_torch.utils import png
+
+    image = os.path.join(root, "cam.png")
+    rng = np.random.default_rng(SEED + 11)
+    with open(image, "wb") as f:
+        f.write(png.encode(rng.integers(0, 256, (IMAGE, IMAGE, 3),
+                                        dtype=np.uint8)))
+    pths = {}
+    for arch in CAM_ARCHS:
+        model, _, _ = build(arch, CAM_CLASSES, IMAGE,
+                            torch.Generator().manual_seed(SEED))
+        if arch == "vit":
+            with torch.no_grad():
+                model.head.weight.normal_(
+                    0.0, 0.02, generator=torch.Generator().manual_seed(SEED))
+        pths[arch] = os.path.join(root, f"{arch}.pth")
+        torch.save({"model_state_dict": model.state_dict()}, pths[arch])
+    return image, pths
+
+
+def phase_cam_backbone(arch: str, root: str, image: str, pth: str) -> dict:
+    """``cli.cam_backbones`` on the card in a process of its own and on the
+    CPU in this one, the same weights and image: the PNG, the CAM's range,
+    logits within TOL_FP32 of their scale, the card's CAM against the CPU's
+    given the card's activation at the target (TOL_CAM); then the eager
+    forward at batch 64, timed and profiled."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli import cam_backbones
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.eval.gradcam import grad_cam, target_activations
+    from medmamba_tpu_torch.utils import png
+
+    args = ["--arch", arch, "--image", image, "--checkpoint_path", pth,
+            "--image_size", str(IMAGE), "--num_classes", str(CAM_CLASSES)]
+    out_png = os.path.join(root, f"{arch}_cam.png")
+    npz = os.path.join(root, f"{arch}.npz")
+    t0 = time.perf_counter()
+    run([sys.executable, "-c", CAM_RUNNER, npz, *args, "--output", out_png,
+         "--device", "cuda"], {}, f"cli.cam_backbones --arch {arch}")
+    process_s = time.perf_counter() - t0
+    card = dict(np.load(npz))
+    with open(out_png, "rb") as f:
+        shape = png.decode(f.read()).shape
+    cam = card["cam"]
+    if shape != (IMAGE, 2 * IMAGE, 3) or cam.shape != (IMAGE, IMAGE) \
+            or not np.isfinite(cam).all() or cam.min() < 0 \
+            or cam.max() > 1 or not cam.any():
+        raise SystemExit(f"{arch}: PNG {shape}, CAM {cam.shape} in "
+                         f"[{cam.min()}, {cam.max()}]")
+    t0 = time.perf_counter()
+    cpu = cam_backbones.main([*args, "--output", out_png, "--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    scale = float(np.abs(cpu["logits"]).max())
+    logits_err = float(np.abs(card["logits"] - cpu["logits"]).max()) / scale
+
+    model, path, reshape = cam_backbones.build(arch, CAM_CLASSES, IMAGE)
+    model.load_state_dict(torch.load(pth, weights_only=True)[
+        "model_state_dict"])
+    model.eval()
+    with open(image, "rb") as f:
+        img = torch.from_numpy(png.load_rgb(f.read(), IMAGE)[None])
+    target = np.array([int(card["pred"])])
+    act = target_activations(model.cuda(), preprocess(img.cuda(), size=IMAGE),
+                             [path])[0]
+    want = grad_cam(model.cpu(), preprocess(img, size=IMAGE),
+                    target_class=target, target_paths=[path],
+                    reshape_transform=reshape,
+                    substitute={path: act.cpu()})[0]
+    cam_err = float(np.abs(cam - want).max())
+    cli_cam_err = float(np.abs(cam - cpu["cam"]).max())
+    log(f"  {arch}: process {process_s:.2f} s (main() {card['seconds']:.2f} "
+        f"s), on the CPU {cpu_s:.2f} s; pred {int(card['pred'])} (CPU "
+        f"{cpu['pred']}); logits {logits_err:.2e} of their scale {scale:.3e} "
+        f"(limit {TOL_FP32:g}); CAM against the CPU's at the card's "
+        f"activation {cam_err:.2e} (limit {TOL_CAM:g}), against the CPU "
+        f"CLI's own {cli_cam_err:.2e}")
+    if logits_err > TOL_FP32 or cam_err > TOL_CAM:
+        raise SystemExit(f"{arch}: the card disagrees with the CPU")
+
+    model.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        fwd_ms = back_to_back_ms(model, [x], 10)
+        prof = profile_families(lambda: model(x), "forward")
+    log(f"  {arch} forward, 224^2, batch {BATCH}, float32 without TF32: "
+        f"{fwd_ms:.3f} ms, {BATCH / fwd_ms * 1e3:.1f} img/s; device "
+        f"{prof['kernel_ms_per_forward']:.3f} ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    prof["family_ms_per_forward"].items()))
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(process_s=process_s, main_s=float(card["seconds"]),
+                cpu_s=cpu_s, logits_rel_err=logits_err, cam_err=cam_err,
+                cli_cam_err=cli_cam_err, forward_ms=fwd_ms,
+                img_s=BATCH / fwd_ms * 1e3, profile=prof)
+
+
+def phase_seg() -> dict:
+    """VSSMSeg at its defaults: a forward at batch SEG_BATCH with exactly
+    40 K1 launches (counters and profiler) against the same model on the
+    plain scan; the backward
+    of a per-pixel cross-entropy with exactly 40 K2 launches, each
+    parameter's gradient against the same backward through K2's plain
+    version (phase 9's method, deterministic forward); under hillis 40 K3
+    and no other scan kernel, against the ssd output; the forward at batch
+    64 timed and profiled, 40 K1 a forward by the profiler."""
+    import torch
+    import torch.nn.functional as F
+
+    from medmamba_tpu_torch.models.decoder import VSSMSeg
+    from medmamba_tpu_torch.ops import scan_cuda
+    from medmamba_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
+
+    model = VSSMSeg(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED))
+    ref = VSSMSeg(SEG_CLASSES, scan_impl="ref")
+    ref.load_state_dict(model.state_dict())
+    model, ref = model.cuda().eval(), ref.cuda().eval()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    x = torch.randn(SEG_BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    labels = torch.randint(0, SEG_CLASSES, (SEG_BATCH, IMAGE, IMAGE),
+                           generator=gen, device="cuda")
+
+    launches = {}
+
+    def forward(m, kernel=None):
+        reset_counts()
+        with torch.inference_mode():
+            out = m(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if kernel is not None:
+            if counts != expected_counts(**{kernel: SEG_LAUNCHES}):
+                raise SystemExit(f"VSSMSeg's forward launched {counts}, "
+                                 f"expected {SEG_LAUNCHES} {kernel} only")
+            launches[kernel] = counts[kernel]
+        return out
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+
+    out = forward(model, "K1")
+    with torch.inference_mode():
+        k1_profiled = profile_families(lambda: model(x), "forward", steps=1)[
+            "family_kernels_per_forward"].get(FAMILY["K1"], 0)
+    if k1_profiled != SEG_LAUNCHES:
+        raise SystemExit(f"the profiler saw {k1_profiled} K1 a forward at "
+                         f"batch {SEG_BATCH}")
+    want = forward(ref)
+    del ref
+    fwd_err = rel(out, want)
+    with scan_kernel("hillis"):
+        hillis_err = rel(forward(model, "K3"), out)
+    log(f"  forward, batch {SEG_BATCH}: {SEG_LAUNCHES} K1 by the counters and "
+        f"the profiler, output "
+        f"{tuple(out.shape)}, {fwd_err:.2e} of its scale off the plain "
+        f"scan's; under hillis {SEG_LAUNCHES} K3, {hillis_err:.2e} off the "
+        f"ssd output (limits {TOL_FP32:g})")
+    if out.shape != (SEG_BATCH, IMAGE, IMAGE, SEG_CLASSES) \
+            or fwd_err > TOL_FP32 or hillis_err > TOL_FP32:
+        raise SystemExit("VSSMSeg's forward disagrees")
+
+    def grads():
+        model.zero_grad()
+        loss = F.cross_entropy(model(x).permute(0, 3, 1, 2), labels)
+        loss.backward()
+        return loss.item(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+    reset_counts()
+    loss_k, got = grads()
+    torch.cuda.synchronize()
+    bwd_counts = read_counts()
+    if bwd_counts != expected_counts(K1=SEG_LAUNCHES, K2=SEG_LAUNCHES):
+        raise SystemExit(f"VSSMSeg's training pass launched {bwd_counts}")
+    kernel_bwd = scan_cuda.selective_scan_bwd
+    scan_cuda.selective_scan_bwd = selective_scan_bwd_ref
+    try:
+        loss_p, plain = grads()
+    finally:
+        scan_cuda.selective_scan_bwd = kernel_bwd
+    model.zero_grad(set_to_none=True)
+    rows = check_model_grads("VSSMSeg: K1 forward, K2", got, plain, loss_k,
+                             loss_p)
+    del got, plain
+
+    x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        fwd_ms = back_to_back_ms(model, [x], 10)
+        prof = profile_families(lambda: model(x), "forward")
+    k1_ms = prof["family_ms_per_forward"].get(FAMILY["K1"], 0.0)
+    k1_profiled = prof["family_kernels_per_forward"].get(FAMILY["K1"], 0)
+    log(f"  forward, 224^2, batch {BATCH}, float32 without TF32: "
+        f"{fwd_ms:.3f} ms, {BATCH / fwd_ms * 1e3:.1f} img/s; device "
+        f"{prof['kernel_ms_per_forward']:.3f} ms, K1 {k1_ms:.3f} ms "
+        f"({100 * k1_ms / prof['kernel_ms_per_forward']:.1f}%, "
+        f"{k1_profiled:g} launches by the profiler)")
+    if k1_profiled != SEG_LAUNCHES:
+        raise SystemExit(f"the profiler saw {k1_profiled} K1 a forward at "
+                         f"batch {BATCH}")
+    del model, x
+    torch.cuda.empty_cache()
+    return dict(launches_forward=launches, launches_backward=bwd_counts,
+                forward_rel_err=fwd_err, hillis_rel_err=hillis_err,
+                grad_rel_err=rows[-1][0], loss=loss_k, forward_ms=fwd_ms,
+                img_s=BATCH / fwd_ms * 1e3, k1_ms=k1_ms,
+                k1_share=k1_ms / prof["kernel_ms_per_forward"], profile=prof)
+
+
+def other_models_process(root: str) -> dict:
+    """Phase 24 in a fresh process, whose log it prints: after phases 1-23
+    this process's profiler drops kernel events (198 of 200 K1 in five
+    VSSMSeg forwards on an H100), as phase 23 found, and the phase profiles
+    every forward it times."""
+    out = run([sys.executable, "-c", "import json, sys, chip_smoke; "
+               "print('result ' + json.dumps(chip_smoke.phase_other_models("
+               "sys.argv[1])))", root], {}, "phase 24's process")
+    text, result = out.rsplit("\nresult ", 1)
+    for line in text.splitlines():
+        log(line)
+    return json.loads(result)
+
+
+def phase_other_models(root: str) -> dict:
+    """Phase 24 (see the docstring), at the precision the port's entry
+    points fix: float32 without TF32."""
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    t0 = time.perf_counter()
+    image, pths = write_cam_inputs(root)
+    log(f"  wrote the image and the .pth files in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for arch in CAM_ARCHS:
+        t0 = time.perf_counter()
+        out[arch] = phase_cam_backbone(arch, root, image, pths[arch])
+        log(f"  ({arch}: {time.perf_counter() - t0:.1f} s)")
+    log("other_models " + json.dumps(out))
+    t0 = time.perf_counter()
+    out["vssmseg"] = phase_seg()
+    log(f"  (VSSMSeg: {time.perf_counter() - t0:.1f} s)")
+    log("vssmseg " + json.dumps(out["vssmseg"]))
+    return out
+
+
 def phase_timing(model):
     """Forward throughput (back-to-back forwards between one event pair)
     and the device time per forward by kernel family."""
@@ -2904,6 +3204,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
         compiled = phase_compiled(root, demo_out["median_ms"])
 
+    header("phase 24: other models (cli.cam_backbones: ViT-B/16, Swin-T, "
+           "MobileNetV2; VSSMSeg on K1/K2 and K3), 224^2")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        others = other_models_process(root)
+    seg = others["vssmseg"]
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -2921,7 +3227,8 @@ def main() -> int:
         "profiled_ms_per_train_step": fam.get(FAMILY["K1"], 0.0),
         "ms_per_forward_batch1": k1_b1["ms_batch1"],
         "device_ms_per_forward_batch1": k1_b1["device_ms_batch1"],
-        "eval_img_s": img_s, "bf16_compute": bf16["K1"]}, {
+        "eval_img_s": img_s, "bf16_compute": bf16["K1"],
+        "launches_vssmseg_forward": seg["launches_forward"]["K1"]}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
@@ -2934,7 +3241,9 @@ def main() -> int:
         "profiled_ms_per_train_step": fam.get(FAMILY["K2"], 0.0),
         "model_grad_rel_err": grad_err,
         "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan,
-        "bf16_compute": bf16["K2"]}, {
+        "bf16_compute": bf16["K2"],
+        "launches_vssmseg_backward": seg["launches_backward"]["K2"],
+        "vssmseg_grad_rel_err": seg["grad_rel_err"]}, {
         "name": "rotate_flip", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
         "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
@@ -2959,7 +3268,8 @@ def main() -> int:
         "profiled_ms_per_forward": h_prof["family_ms_per_forward"].get(
             FAMILY["K3"], 0.0),
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K3"], 0.0),
-        "eval_img_s": h_img_s, "bf16_compute": bf16["K3"]}, {
+        "eval_img_s": h_img_s, "bf16_compute": bf16["K3"],
+        "launches_vssmseg_forward": seg["launches_forward"]["K3"]}, {
         "name": "selective_scan_hillis_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1275",
@@ -3000,6 +3310,14 @@ def main() -> int:
         "demo": demo_out,
         "export": export_out,
         "compiled": compiled,
+        "other_models": {
+            **{arch: {k: others[arch][k] for k in (
+                "forward_ms", "img_s", "process_s", "main_s", "cpu_s",
+                "logits_rel_err", "cam_err", "cli_cam_err")}
+               for arch in CAM_ARCHS},
+            "vssmseg": {k: seg[k] for k in (
+                "forward_ms", "img_s", "k1_ms", "k1_share",
+                "forward_rel_err", "hillis_rel_err", "grad_rel_err")}},
         "train_img_s": {k: v["img_s"] for k, v in train_timing.items()},
         "hillis_train_img_s": {k: v["img_s"] for k, v in h_train.items()},
         "bf16_compute": {scan: {k: v[k] for k in (

@@ -58,8 +58,11 @@ _DEVICE_CONSTANTS: Dict[tuple, torch.Tensor] = {}
 def _on_device(key: tuple, device: torch.device, make) -> torch.Tensor:
     t = _DEVICE_CONSTANTS.get((key, device))
     if t is None:
-        t = _DEVICE_CONSTANTS[(key, device)] = torch.from_numpy(
-            make()).to(device)
+        t = torch.from_numpy(make()).to(device)
+        # made while torch.export traces, it is a fake tensor of that trace,
+        # which later eager calls must not be handed
+        if type(t) is torch.Tensor:
+            _DEVICE_CONSTANTS[(key, device)] = t
     return t
 
 

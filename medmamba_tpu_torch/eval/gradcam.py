@@ -1,4 +1,7 @@
-"""Grad-CAM for the port's VSSM (counterpart of ``medmamba_tpu/eval/gradcam.py``).
+"""Grad-CAM for the port's models (counterpart of
+``medmamba_tpu/eval/gradcam.py``): the VSSM, and the CAM backbones of
+``cli.cam_backbones`` (ViT, Swin, MobileNetV2), each of which names its
+activations by their JAX module paths through its ``tap_site``.
 
 The same maths as the JAX package (grad_cam/utils.py:52-175 + test.py:99-121
 of the reference):
@@ -9,9 +12,10 @@ of the reference):
     per-image min-max rescale and bilinear resize to the input size;
   * loss = sum of the target-class logits over the batch.
 
-The activations come from the model's taps (``VSSM.tap_site``). During the
-CAM forward no parameter requires a gradient, and the loss is differentiated
-with respect to the tapped activations only, as the JAX program
+The activations come from the model's taps (``VSSM.tap_site``, and the
+backbones' ``tap_site``). During the CAM forward no parameter requires a
+gradient, and the loss is differentiated with respect to the tapped
+activations only, as the JAX program
 differentiates only with respect to zero perturbations of them. So the
 backward runs only through what lies downstream of the targets: on the card,
 K2 launches only for the scans between a target and the logits.

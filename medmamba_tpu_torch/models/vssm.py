@@ -52,13 +52,17 @@ from medmamba_tpu_torch.ops.selective_scan import selective_scan
 
 
 @torch.no_grad()
-def trunc_normal_02(w: torch.Tensor, gen: torch.Generator) -> None:
-    """flax ``truncated_normal(stddev=0.02)``: a standard normal cut at +/-2,
-    scaled so that the cut distribution has standard deviation 0.02."""
+def trunc_normal(w: torch.Tensor, std: float, gen: torch.Generator) -> None:
+    """flax ``truncated_normal(stddev=std)``: a standard normal cut at +/-2,
+    scaled so that the cut distribution has standard deviation ``std``."""
     lo, hi = (1 + math.erf(-2 / math.sqrt(2))) / 2, \
         (1 + math.erf(2 / math.sqrt(2))) / 2
     w.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
-    w.erfinv_().mul_(math.sqrt(2) * 0.02 / 0.87962566103423978)
+    w.erfinv_().mul_(math.sqrt(2) * std / 0.87962566103423978)
+
+
+def trunc_normal_02(w: torch.Tensor, gen: torch.Generator) -> None:
+    trunc_normal(w, 0.02, gen)
 
 
 @torch.no_grad()

@@ -3,7 +3,15 @@
 Counterpart of ``medmamba_tpu/utils/torch_interop.py`` (its name map is
 copied here, so this module needs no JAX). The JAX side is the variables as
 nested dicts of numpy arrays, ``{"params": ..., "batch_stats": ...}``; the
-port's side is the reference MedMamba ``state_dict`` schema:
+port's side is the reference MedMamba ``state_dict`` schema, for the VSSM
+and for ``VSSMSeg`` (``models/decoder.py``). ``VSSMSeg``'s encoder keeps the
+VSSM's names; its decoder's follow the modules of the reference's
+``temp.py`` as the JAX ``decoder.py`` cites them
+(``layers_up.{i}.upsample.expand.weight``, ``layers_up.{i}.upsample.norm.*``,
+``layers_up.{i}.blocks.{j}.*`` as the encoder's blocks,
+``final_up.expand.weight``, ``final_up.norm.*``, and the 1x1 conv
+``head.weight``/``head.bias``). ``temp.py`` is not in the repository, so
+that part of the schema is the port's. In both directions:
 
 * Linear weights: flax (in, out) <-> torch (out, in);
 * conv weights: flax HWIO <-> torch OIHW;
@@ -27,9 +35,10 @@ _BN_PARAM = {"weight": ("params", "scale"), "bias": ("params", "bias"),
              "running_var": ("batch_stats", "var")}
 
 
-def _translate(key: str):
-    """(collection, path, transform) for a state-dict key, or None for keys
-    without a flax counterpart (num_batches_tracked)."""
+def _translate(key: str, ndim: int):
+    """(collection, path, transform) for a state-dict key holding an array
+    of ``ndim`` dimensions, or None for keys without a flax counterpart
+    (num_batches_tracked)."""
     parts = key.split(".")
 
     if key.startswith("patch_embed.proj."):
@@ -38,9 +47,18 @@ def _translate(key: str):
             ("conv_oihw" if parts[-1] == "weight" else "none")
     if key.startswith("patch_embed.norm."):
         return "params", ("patch_embed", "norm", _LN_PARAM[parts[-1]]), "none"
-    if key.startswith("head."):
+    if key.startswith("head."):       # the VSSM's Linear, VSSMSeg's 1x1 conv
         return "params", ("head", "kernel" if parts[-1] == "weight" else "bias"), \
-            ("linear" if parts[-1] == "weight" else "none")
+            (_kernel_tag(ndim) if parts[-1] == "weight" else "none")
+
+    m = re.match(r"(?:layers_up\.(\d+)\.upsample|final_up)\.(expand|norm)\."
+                 r"(\w+)$", key)
+    if m:
+        i, mod, p = m.groups()
+        base = ("final_up",) if i is None else (f"layers_up_{i}", "upsample")
+        if mod == "norm":
+            return "params", base + ("norm", _LN_PARAM[p]), "none"
+        return "params", base + ("expand", "kernel"), "linear"
 
     m = re.match(r"layers\.(\d+)\.downsample\.(norm|reduction)\.(\w+)$", key)
     if m:
@@ -50,11 +68,11 @@ def _translate(key: str):
             return "params", base + ("norm", _LN_PARAM[p]), "none"
         return "params", base + ("reduction", "kernel"), "linear"
 
-    m = re.match(r"layers\.(\d+)\.blocks\.(\d+)\.(.+)$", key)
+    m = re.match(r"(layers|layers_up)\.(\d+)\.blocks\.(\d+)\.(.+)$", key)
     if m is None:
         raise KeyError(f"unrecognized reference parameter: {key}")
-    i, j, rest = m.groups()
-    base = (f"layers_{i}", f"blocks_{j}")
+    stage, i, j, rest = m.groups()
+    base = (f"{stage}_{i}", f"blocks_{j}")
     rp = rest.split(".")
 
     if rp[0] == "ln_1":
@@ -90,14 +108,13 @@ def _translate(key: str):
     raise KeyError(f"unrecognized reference parameter: {key}")
 
 
-def _tag_for(keys: Sequence[str]) -> str:
-    leaf, parent = keys[-1], keys[-2] if len(keys) > 1 else ""
-    if leaf != "kernel":
-        return "none"
-    if parent in ("proj", "conv2d") or parent.startswith("conv3x3") \
-            or parent == "conv1x1":
-        return "conv_oihw"
-    return "linear"
+def _kernel_tag(ndim: int) -> str:
+    """A flax kernel's layout: 4-d convolutions (HWIO), 2-d Dense layers."""
+    return "conv_oihw" if ndim == 4 else "linear"
+
+
+def _tag_for(keys: Sequence[str], ndim: int) -> str:
+    return _kernel_tag(ndim) if keys[-1] == "kernel" else "none"
 
 
 def _untranslate(keys: Sequence[str]) -> str:
@@ -108,7 +125,7 @@ def _untranslate(keys: Sequence[str]) -> str:
                   "mean": "running_mean", "var": "running_var"}
     parts = []
     for k in keys:
-        m = re.match(r"(layers|blocks)_(\d+)$", k)
+        m = re.match(r"(layers_up|layers|blocks)_(\d+)$", k)
         if m:
             parts += [m.group(1), m.group(2)]
         elif k in conv_rev:
@@ -150,7 +167,8 @@ def state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for keys, leaf in _leaves(variables.get(coll, {})):
-            arr = _to_torch_layout(np.asarray(leaf, np.float32), _tag_for(keys))
+            arr = np.asarray(leaf, np.float32)
+            arr = _to_torch_layout(arr, _tag_for(keys, arr.ndim))
             sd[_untranslate(keys)] = torch.from_numpy(np.ascontiguousarray(arr))
     for key in [k for k in sd if k.endswith(".running_mean")]:
         sd[key[:-len("running_mean")] + "num_batches_tracked"] = \
@@ -163,12 +181,12 @@ def state_dict_to_jax(state_dict: Dict[str, Any]) -> Dict[str, Any]:
     dicts of float32 numpy arrays."""
     out: Dict[str, Any] = {"params": {}, "batch_stats": {}}
     for key, val in state_dict.items():
-        tr = _translate(key)
+        arr = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
+            else np.asarray(val)
+        tr = _translate(key, arr.ndim)
         if tr is None:
             continue
         coll, path, tag = tr
-        arr = val.detach().cpu().numpy() if isinstance(val, torch.Tensor) \
-            else np.asarray(val)
         node = out[coll]
         for p in path[:-1]:
             node = node.setdefault(p, {})

@@ -6,7 +6,9 @@ held against the JAX package's doubling written in plain PyTorch), K5 (flip
 + rotation), the probes P1 and P2, the launch counts of a Grad-CAM, the
 graph ops of ``ops/scan_op.py`` and an exported artifact on the card, and
 the compiled steps (``-k graph``: CUDA graphs of the forward and the train
-step against the eager ones, bit for bit where two eager runs agree).
+step against the eager ones, bit for bit where two eager runs agree), and
+the other models (``-k "backbone or vssmseg"``: the CAM backbones' logits
+against the CPU's, ``VSSMSeg``'s 40 K1 a forward and 40 K2 a backward).
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -1303,3 +1305,46 @@ def test_graph_train_cli_profile_dir_traces_the_replays(cuda, tmp_path):
     k2 = sum("scan_bwd_kernel" in n for n in names)
     k5 = sum("rotate_flip_kernel" in n for n in names)
     assert 20 <= k1 <= 5 * 20 and 20 <= k2 <= 5 * 20 and 1 <= k5 <= 5
+
+
+@pytest.mark.parametrize("arch", ["vit", "swin", "mobilenet"])
+def test_backbone_logits_on_the_card_match_the_cpu(cuda, arch):
+    """``cli.cam_backbones``' models at full width (ViT-B/16, Swin-T,
+    MobileNetV2; the ViT's zero head drawn from normal(0.02)) at 64^2: the
+    card's logits within 1e-4 of their scale of the CPU's."""
+    from medmamba_tpu_torch.cli.cam_backbones import build
+
+    gen = torch.Generator().manual_seed(0)
+    model, _, _ = build(arch, 10, 64, gen)
+    if arch == "vit":
+        with torch.no_grad():
+            model.head.weight.normal_(0.0, 0.02, generator=gen)
+    model.eval()
+    x = torch.randn(2, 64, 64, 3, generator=gen)
+    with torch.no_grad():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_vssmseg_launches_the_kernels_once_per_scan(cuda):
+    """The default VSSMSeg (20 SS-Conv-SSM blocks) at 64^2: 40 K1 a
+    forward, against the plain scan to 1e-4 of its scale; 40 K2 a
+    backward."""
+    from medmamba_tpu_torch.models.decoder import VSSMSeg
+
+    model = VSSMSeg(2).to(cuda).eval()
+    ref = VSSMSeg(2, scan_impl="ref").to(cuda).eval()
+    ref.load_state_dict(model.state_dict())
+    x = torch.randn(2, 64, 64, 3, device=cuda)
+    scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+    with torch.no_grad():
+        got = model(x)
+        torch.cuda.synchronize()
+        assert scan_cuda.LAUNCHES == 40
+        want = ref(x)
+    assert got.shape == (2, 64, 64, 2)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    model(x).square().mean().backward()
+    torch.cuda.synchronize()
+    assert scan_cuda.LAUNCHES == 80 and scan_cuda.BWD_LAUNCHES == 40

@@ -122,6 +122,22 @@ def test_raw_frames_are_resized_as_jax_does(tiny):
                                with_preprocess=False)
 
 
+def test_export_leaves_no_traced_constant_for_the_eager_path(tiny):
+    """A resize matrix first made while ``torch.export`` traces is a fake
+    tensor of that trace; eager calls in the same process after the export
+    get a real one (40^2 frames: a size no other test resizes from)."""
+    from medmamba_tpu_torch.data.transforms import preprocess
+
+    _, _, tm = tiny
+    texport.export_forward(tm, image_size=32, input_size=40, batch=2,
+                           device="cpu")
+    x = torch.from_numpy(_frames(7, 2, 40))
+    got = preprocess(x, size=32)
+    assert type(got) is torch.Tensor and got.shape == (2, 32, 32, 3)
+    np.testing.assert_array_equal(got.numpy(),
+                                  preprocess(x, size=32).numpy())
+
+
 def _call_targets(blob):
     graph = texport.load_exported(blob).program.graph
     return Counter(str(n.target) for n in graph.nodes

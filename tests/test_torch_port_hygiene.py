@@ -36,6 +36,12 @@ def test_importing_the_port_loads_no_jax():
             "import medmamba_tpu_torch.ops.flops\n"
             "import medmamba_tpu_torch.tools.earlier_kernels\n"
             "import medmamba_tpu_torch.utils.graphs\n"
+            "import medmamba_tpu_torch.cli.cam_backbones\n"
+            "import medmamba_tpu_torch.models.vit\n"
+            "import medmamba_tpu_torch.models.swin\n"
+            "import medmamba_tpu_torch.models.mobilenet\n"
+            "import medmamba_tpu_torch.models.decoder\n"
+            "import medmamba_tpu_torch.utils.convert_backbones\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
             "bad += [m.__name__ for m in (probe_vpu, probe_mosaic) "
