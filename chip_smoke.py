@@ -168,15 +168,37 @@ Phases, in order; any failure exits non-zero:
      40 K3 and no other scan kernel under hillis against the ssd output,
      the forward at batch 64 timed and profiled (40 K1 by the profiler, K1's
      share of the device time); 40 K1 a forward by the profiler at both
-     batches. The phase runs in a fresh process (``other_models_process``).
+     batches. The phase runs in a fresh process (``other_models_process``);
+ 25. distribution (``parallel/mesh.py``, ``ops/seq_parallel.py``), each
+     group in processes of its own started by ``torch.distributed.run``:
+     (a) ``cli.train`` as in phase 8 in this process without a group and
+     under torchrun at world 1 on NCCL with its graphed steps: the same
+     per-step losses and last ``.pth`` bit for bit (again both under
+     ``cudnn.deterministic`` if they differ), 20 K1 + 20 K2 + 1 K5 a step;
+     then in the torchrun process the graphed bf16 step captured with and
+     without the group, timed in turns, one replay of each profiled
+     (launches, the collectives' device time); (b) two ranks on the card
+     over gloo (NCCL refuses two ranks on one card), eager steps with
+     augmentation under ``cudnn.deterministic``, float32 blocks and then
+     bf16 blocks, 32 rows a rank, 3 random batches and one of 37 real rows
+     padded to 64, each step against one process's step on the whole
+     batch from the same state (loss, gradient, BatchNorm statistics,
+     parameters; see PAIR_*), the ranks' parameters the same bits, 20 K1
+     + 20 K2 + 1 K5 a rank a step; (c) on
+     the same ranks the sequence-parallel scan, L split in two, at
+     medmamba_t's stage 0 (batch 64, L 3136) and a 1024^2 image's (batch
+     1, L 65536): one K1 launch a rank, y and the final state against K1
+     over the whole sequence and the plain scan, K1's share of the split
+     call, and the kernel path's backward raising.
 On the card every CLI runs its steps as CUDA graphs (phase 23), except
 ``cli.cam_backbones``, which serves one image a process eagerly; the timing
 phases 5, 10, 16, 22 and 24 time the eager functions.
 Each phase's header says when it started. The line before the last lists
 every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
 times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers;
-K1-K3 with ``VSSMSeg``'s launches), and phases 21's and 24's; the last
-line is the JSON ``{"ok": true, "device": {...}}``.
+K1-K3 with ``VSSMSeg``'s launches, K1, K2 and K5 with phase 25's), and
+phases 21's and 24's; the last line is the JSON ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -2607,6 +2629,7 @@ FAMILY = {"K1": "selective_scan_fwd (K1)", "K2": "selective_scan_bwd (K2)",
           "K3": "selective_scan_hillis_fwd (K3)",
           "K4": "selective_scan_hillis_bwd (K4)", "K5": "rotate_flip (K5)"}
 FAMILIES = (
+    ("collective", r"nccl|Nccl"),
     (FAMILY["K3"], r"hillis_fwd_kernel"),
     (FAMILY["K4"], r"hillis_bwd_(states_|reduce_)?kernel"),
     (FAMILY["K1"], r"scan_fwd_kernel"),
@@ -2960,6 +2983,591 @@ def phase_other_models(root: str) -> dict:
     return out
 
 
+# phase 25: data parallelism and the sequence-parallel scan, each group in
+# processes of its own started by torchrun (a process holds one default
+# group, and after phases 1-23 this process's profiler drops events). The
+# kernels are built by phase 2, so no child builds them. One host and no
+# network: NCCL and gloo bootstrap over the loopback interface.
+TORCHRUN = (sys.executable, "-m", "torch.distributed.run", "--standalone")
+DIST_ENV = {"NCCL_SOCKET_IFNAME": "lo", "GLOO_SOCKET_IFNAME": "lo",
+            "PYTHONPATH": REPO}
+DIST_RUNNER = r"""
+import sys
+import chip_smoke
+
+getattr(chip_smoke, sys.argv[1])(*sys.argv[2:])
+"""
+# (a) the graphed step with and without a world-1 group, timed in turns:
+# back-to-back replays per turn
+DIST_TIMING_REPS = 5
+# (b) two gloo ranks on the card against one process, each step from the
+# same state: steps on random batches, then a final batch of PAIR_REAL real
+# rows padded to BATCH (32 rows a rank: 32 and 5 valid); eager steps under
+# cudnn.deterministic, once with float32 blocks and once with bfloat16
+# blocks. Float32 blocks: the ranks and one process differ only in the
+# order of float32 sums (the collectives; cuDNN's and cuBLAS's kernels at
+# batch 32 against 64), so the loss is held within TOL_PAIR_F32_LOSS of its
+# value, the BatchNorm running statistics within TOL_PAIR_F32_STATS of the
+# largest statistic, the summed gradient AdamW is given within
+# TOL_PAIR_F32_GRAD of one process's in L2 norm, and the parameters after
+# AdamW within TOL_PAIR_F32_UPDATE of one process's update in L2 norm (a
+# parameter whose gradient is zero in exact arithmetic, a convolution bias
+# in front of a BatchNorm, steps by up to lr either way on rounding noise:
+# these limits hold that share, and a gradient that is not the global
+# batch's moves every parameter). Each limit is about three times the
+# largest reading of PR 14's chip calls (PERF.md §6); the parameter whose
+# gradient parts most is a reading beside it. Bfloat16 blocks, what
+# the CLI trains: the halves' kernels round their bfloat16 outputs apart by
+# up to 2^-8; the loss, a mean of 64 rows, within TOL_PAIR_LOSS of its
+# value (about one such rounding), the statistics within TOL_PAIR_STATS,
+# the gradient within PAIR_GRAD_FACTOR times the same step's float32-block
+# gradient off it (at random init a few of medmamba_t's gradients are
+# ill-conditioned, so kernels that round apart move them by percents);
+# the parameters are a reading there. The two ranks' parameters the same
+# bits.
+PAIR_STEPS = 3
+PAIR_REAL = 37
+PAIR_LR = 1e-3
+PAIR_DTYPES = ("float32", "bfloat16")
+TOL_PAIR_F32_LOSS = 5e-7
+TOL_PAIR_F32_STATS = 1e-6
+TOL_PAIR_F32_GRAD = 5e-3
+TOL_PAIR_F32_UPDATE = 0.15
+TOL_PAIR_LOSS = 5e-3
+TOL_PAIR_STATS = 1e-2
+PAIR_GRAD_FACTOR = 2.0
+# (c) the split scan against K1 over the whole sequence and against the
+# plain scan: the stitch (a cumulative product of decays, then a rank-1
+# correction) rounds in another order than the sequential walk; y and the
+# final state within TOL_FP32 of their scale. The shapes: medmamba_t's
+# stage 0 at batch 64, and a 1024^2 image's stage 0 (L 65536) at batch 1.
+SEQ_SHAPES = ((BATCH, STAGES[0][1]), (1, (1024 // 4) ** 2))
+
+
+def dist_cli(out_path: str, deterministic: str, timing_path: str,
+             *argv: str) -> None:
+    """``cli.train.main(argv)``, cuDNN deterministic when
+    ``deterministic`` is "1"; rank 0 (or the lone process) writes the
+    per-step losses, the last ``.pth``, the launch counts and the wall to
+    ``out_path``. Then, unless ``timing_path`` is "-", ``dist_timing`` in
+    the same process (under torchrun), which saves a process start."""
+    import torch
+
+    from medmamba_tpu_torch.cli import train
+
+    torch.backends.cudnn.deterministic = deterministic == "1"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train.main(list(argv))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if int(os.environ.get("RANK", "0")) == 0:
+        with open(out_path, "w") as f:
+            json.dump(dict(step_losses=out["step_losses"],
+                           last_path=out["last_path"],
+                           counts=read_counts(), main_s=wall), f)
+    if timing_path != "-":
+        dist_timing(timing_path)
+
+
+def same_pth(a: str, b: str) -> bool:
+    """Whether two training ``.pth`` files hold the same tensors, bit for
+    bit: the model's state and the optimizer's."""
+    import torch
+
+    pa, pb = (torch.load(p, weights_only=True) for p in (a, b))
+
+    def flat(tree, prefix=""):
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                out.update(flat(v, f"{prefix}/{k}"))
+            return out
+        if isinstance(tree, (list, tuple)):
+            return flat(dict(enumerate(tree)), prefix)
+        return {prefix: tree}
+    fa, fb = (flat({k: p[k] for k in ("model_state_dict",
+                                        "optimizer_state_dict")})
+              for p in (pa, pb))
+    return fa.keys() == fb.keys() and all(
+        torch.equal(v, fb[k]) if torch.is_tensor(v) else v == fb[k]
+        for k, v in fa.items())
+
+
+def dist_timing(out_path: str) -> None:
+    """Under torchrun, world 1 on NCCL: the graphed bf16 train step of
+    medmamba_t (augmentation, 224^2, batch 64) captured without a group
+    and with the world-1 group, on the same weights and generator seed;
+    their first replays' losses, the two timed in turns, one replay of
+    each under the profiler (launches and the collectives' device time)."""
+    import torch
+    t_start = time.perf_counter()
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.parallel import mesh
+    from medmamba_tpu_torch.train import trainer
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    grid = mesh.make_mesh(device="cuda")
+    try:
+        _, images, labels = compiled_inputs()
+        calls, first = {}, {}
+        for name, active in (("no_group", None), ("group", grid)):
+            mesh.set_active_mesh(active)
+            model = create_model("T", NUM_CLASSES, dtype=torch.bfloat16,
+                                 device="cuda", generator=torch.Generator()
+                                 .manual_seed(SEED))
+            opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+            step = trainer.compile_train_step(
+                model, opt, generator=torch.Generator(device="cuda")
+                .manual_seed(SEED + 13))
+
+            def call(_=None, step=step):
+                return step(images, labels, augment=True, image_size=IMAGE)
+            reset_counts()
+            first[name] = call().clone()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if counts != expected_counts(K1=LAUNCHES_PER_FORWARD,
+                                         K2=LAUNCHES_PER_FORWARD, K5=1):
+                raise SystemExit(f"graphed step ({name}): a replay counted "
+                                 f"{counts}")
+            calls[name] = call
+        mesh.set_active_mesh(grid)
+        backend = torch.distributed.get_backend(mesh.data_group(grid))
+        turns = in_turns(calls["no_group"], calls["group"], DIST_TIMING_REPS)
+        profiles = {name: profile_families(call, "call", steps=1)
+                    for name, call in calls.items()}
+        check_profiled_launches("graphed step with the group", profiles[
+            "group"], "call", K1=LAUNCHES_PER_FORWARD,
+            K2=LAUNCHES_PER_FORWARD, K5=1)
+    finally:
+        mesh.destroy_mesh()
+    out = dict(backend=backend,
+               first_loss_bitwise=bool(torch.equal(first["no_group"],
+                                                   first["group"])),
+               no_group_ms=turns["eager_ms"], group_ms=turns["graph_ms"],
+               in_turns_ms=turns["in_turns_ms"],
+               collective_ms={name: p["family_ms_per_call"].get(
+                   "collective", 0.0) for name, p in profiles.items()},
+               kernel_ms={name: p["kernel_ms_per_call"]
+                          for name, p in profiles.items()},
+               collective_kernels=[k["name"] for k in profiles["group"][
+                   "top_kernels"] if family(k["name"]) == "collective"],
+               families={name: p["family_ms_per_call"]
+                         for name, p in profiles.items()},
+               seconds=time.perf_counter() - t_start)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def pair_batches():
+    """(b)'s global batches on the card, the same on every rank: PAIR_STEPS
+    random uint8 batches and their labels, then one with PAIR_REAL real
+    rows (label -1 after)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    out = []
+    for i in range(PAIR_STEPS + 1):
+        images = torch.randint(0, 256, (BATCH, IMAGE, IMAGE, 3),
+                               generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        labels = torch.randint(0, NUM_CLASSES, (BATCH,), generator=gen,
+                               device="cuda")
+        if i == PAIR_STEPS:
+            labels[PAIR_REAL:] = -1
+        out.append((images, labels))
+    return out
+
+
+def pair_model(dtype="bfloat16"):
+    """medmamba_t with ``dtype`` blocks from seed SEED, and its AdamW."""
+    import torch
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    model = create_model("T", NUM_CLASSES, dtype=getattr(torch, dtype),
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    return model, trainer.make_optimizer(model.parameters(), PAIR_LR,
+                                         True)[0]
+
+
+def pair_steps(grid, rank: int) -> dict:
+    """(b): eager steps on this rank's half of each global batch, with
+    float32 and with bfloat16 blocks. Before each, rank 0 copies the ranks'
+    state (model, optimizer, generator) into a model of its own, which
+    takes one process's step on the whole batch (and, with bfloat16
+    blocks, into a float32-block control); after it, the ranks' loss,
+    gradient, BatchNorm statistics and parameters are held to that step's
+    (see PAIR_*), so each step is compared from the same state."""
+    import copy
+
+    import torch
+
+    from medmamba_tpu_torch.parallel import mesh
+    from medmamba_tpu_torch.train import trainer
+
+    group = mesh.data_group(grid)
+    torch.backends.cudnn.deterministic = True
+    try:
+        batches = pair_batches()
+        half = slice(rank * BATCH // 2, (rank + 1) * BATCH // 2)
+        grads = {}
+
+        def keep_grads(opt, name):
+            opt.register_step_pre_hook(lambda o, *_: grads.__setitem__(
+                name, torch.cat([p.grad.reshape(-1) for g in o.param_groups
+                                 for p in g["params"]])))
+        runs = {}
+        for dtype in PAIR_DTYPES:
+            model, opt = pair_model(dtype)
+            keep_grads(opt, "ranks")
+            refs = {}
+            if rank == 0:
+                refs["one_process"] = pair_model(dtype)
+                if dtype == "bfloat16":
+                    refs["fp32_blocks"] = pair_model("float32")
+                for name, (_, o) in refs.items():
+                    keep_grads(o, name)
+            runs[dtype] = dict(model=model, opt=opt, refs=refs, rows=[],
+                               gen=torch.Generator(device="cuda")
+                               .manual_seed(SEED + 23))
+        ref_gen = torch.Generator(device="cuda")
+        stats = [k for k, _ in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))]
+        names = [k for k, _ in model.named_parameters()]
+        sizes = [p.numel() for p in model.parameters()]
+        counts, wall = {}, 0.0
+
+        def flat_params(m):
+            return torch.cat([p.detach().float().reshape(-1)
+                              for p in m.parameters()])
+        for images, labels in batches:
+            for dtype, r in runs.items():
+                model, opt, gen = r["model"], r["opt"], r["gen"]
+                if rank == 0:
+                    for m, o in r["refs"].values():
+                        m.load_state_dict(model.state_dict())
+                        o.load_state_dict(copy.deepcopy(opt.state_dict()))
+                    gen_state = gen.get_state()
+                    before = flat_params(model)
+                reset_counts()
+                t0 = time.perf_counter()
+                loss = trainer.train_step(model, opt, images[half],
+                                          labels[half], generator=gen,
+                                          augment=True,
+                                          image_size=IMAGE).item()
+                wall += time.perf_counter() - t0
+                counts = read_counts()
+                if counts != expected_counts(K1=LAUNCHES_PER_FORWARD,
+                                             K2=LAUNCHES_PER_FORWARD, K5=1):
+                    raise SystemExit(f"rank {rank}: a {dtype} step counted "
+                                     f"{counts}")
+                if rank != 0:
+                    continue
+                mesh.set_active_mesh(None)
+                try:
+                    want = {}
+                    for name, (m, o) in r["refs"].items():
+                        ref_gen.set_state(gen_state)
+                        want[name] = trainer.train_step(
+                            m, o, images, labels, generator=ref_gen,
+                            augment=True, image_size=IMAGE).item()
+                finally:
+                    mesh.set_active_mesh(grid)
+                ref = r["refs"]["one_process"][0]
+                got_s, want_s = model.state_dict(), ref.state_dict()
+                scale = max(want_s[k].abs().max().item() for k in stats)
+                p_got, p_want = flat_params(model), flat_params(ref)
+                p_diff = (p_got - p_want).abs()
+                g_ref = grads["one_process"]
+                sq = [d.square().sum().item() for d in
+                      (grads["ranks"] - g_ref).split(sizes)]
+                worst = max(range(len(sq)), key=sq.__getitem__)
+                row = dict(
+                    grad_worst=names[worst],
+                    grad_worst_share=sq[worst] / sum(sq),
+                    loss=loss, loss_one_process=want["one_process"],
+                    loss_rel_err=abs(loss - want["one_process"])
+                    / abs(want["one_process"]),
+                    grad_rel_err=((grads["ranks"] - g_ref).norm()
+                                  / g_ref.norm()).item(),
+                    stats_rel_err=max((got_s[k] - want_s[k]).abs().max()
+                                      .item() for k in stats) / scale,
+                    update_rel_err=((p_got - p_want).norm()
+                                    / (p_want - before).norm()).item(),
+                    param_max_abs_err=p_diff.max().item(),
+                    param_share_over_lr_10=(p_diff > PAIR_LR / 10)
+                    .float().mean().item())
+                if "fp32_blocks" in want:
+                    row["grad_rel_err_fp32_blocks"] = (
+                        (grads["fp32_blocks"] - g_ref).norm()
+                        / g_ref.norm()).item()
+                r["rows"].append(row)
+        same = {}
+        for dtype, r in runs.items():
+            both = mesh.all_gather(flat_params(r["model"]), group)
+            same[dtype] = bool(torch.equal(both[0], both[1]))
+        out = dict(steps={dtype: r["rows"] for dtype, r in runs.items()},
+                   counts_a_step=counts, wall_s=wall, ranks_bitwise=same)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.distributed.barrier(group)
+    return out
+
+
+def seq_checks(grid, rank: int) -> list:
+    """(c): at each of SEQ_SHAPES, this rank's half of L through
+    ``selective_scan_seq_parallel`` on K1 (one launch) against K1 over the
+    whole sequence and the plain scan; the split call's wall with a sync
+    and K1's time on the half (CUDA events); a backward through the kernel
+    path raises."""
+    import torch
+
+    from medmamba_tpu_torch.ops.selective_scan import (LAST_STATE_GRAD_ERROR,
+                                                       selective_scan)
+    from medmamba_tpu_torch.ops.seq_parallel import \
+        selective_scan_seq_parallel
+    from medmamba_tpu_torch.parallel import mesh
+
+    group = mesh.data_group(grid)
+    out = []
+    for batch, l in SEQ_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31 + l)
+        x = scan_inputs(STAGES[0][0], l, torch.float32, gen, batch=batch)
+        part = slice(rank * l // 2, (rank + 1) * l // 2)
+        xs = {k: v[..., part].contiguous() if k in ("u", "delta", "B", "C")
+              else v for k, v in x.items()}
+
+        def split():
+            return selective_scan_seq_parallel(
+                **xs, delta_softplus=True, group=group,
+                return_last_state=True)
+        reset_counts()
+        with torch.no_grad():
+            y, h = split()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != expected_counts(K1=1):
+            raise SystemExit(f"rank {rank}: the split scan counted {counts}")
+        row = dict(batch=batch, l=l, counts=counts)
+        with torch.no_grad():
+            for name, impl in (("k1", "auto"), ("plain", "ref")):
+                y_w, h_w = selective_scan(**x, delta_softplus=True,
+                                          return_last_state=True, impl=impl)
+                y_w = y_w[..., part]
+                row[f"y_err_vs_{name}"] = ((y - y_w).abs().max()
+                                           / y_w.abs().max()).item()
+                row[f"h_err_vs_{name}"] = ((h - h_w).abs().max()
+                                           / h_w.abs().max()).item()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                split()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            row["split_ms"] = statistics.median(walls)
+            row["k1_ms"] = back_to_back_ms(lambda _: selective_scan(
+                **xs, delta_softplus=True, return_last_state=True), [None], 5)
+        row["k1_share"] = row["k1_ms"] / row["split_ms"]
+        worst = max(v for k, v in row.items() if k.endswith(
+            ("_vs_k1", "_vs_plain")))
+        if worst > TOL_FP32:
+            raise SystemExit(f"rank {rank}: the split scan at batch {batch}, "
+                             f"L {l} is {worst:.3e} of its scale off "
+                             f"(limit {TOL_FP32:g}): {row}")
+        out.append(row)
+    # under autograd the kernel path raises in the backward (the local
+    # scan's last state feeds the stitch); at the last shape
+    leaf = xs["u"].clone().requires_grad_()
+    try:
+        selective_scan_seq_parallel(**dict(xs, u=leaf), delta_softplus=True,
+                                    group=group).sum().backward()
+    except RuntimeError as e:
+        if LAST_STATE_GRAD_ERROR not in str(e):
+            raise
+        out.append(dict(raised=str(e)[:80]))
+    else:
+        raise SystemExit(f"rank {rank}: a backward through the split "
+                         "kernel path did not raise")
+    return out
+
+
+def dist_pair(root: str) -> None:
+    """Under torchrun, 2 ranks on card 0 over gloo (NCCL refuses two ranks
+    on one card): (b) ``pair_steps`` and (c) ``seq_checks``; each rank
+    writes ``pair_<rank>.json`` into ``root``."""
+    import torch
+
+    from medmamba_tpu_torch.parallel import mesh
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    rank = int(os.environ["RANK"])
+    grid = mesh.make_mesh(device=torch.device("cuda", 0), backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        steps = pair_steps(grid, rank)
+        t1 = time.perf_counter()
+        seq = seq_checks(grid, rank)
+        t2 = time.perf_counter()
+    finally:
+        mesh.destroy_mesh()
+    with open(os.path.join(root, f"pair_{rank}.json"), "w") as f:
+        json.dump(dict(steps=steps, seq=seq, steps_s=t1 - t0, seq_s=t2 - t1),
+                  f)
+
+
+def phase_distribution(root: str) -> dict:
+    """Phase 25 (see the docstring)."""
+    import torch
+
+    runner = os.path.join(root, "dist_runner.py")
+    with open(runner, "w") as f:
+        f.write(DIST_RUNNER)
+    write_train_split(root)
+    steps = -(-N_IMAGES // BATCH)
+    val_batches = -(-N_VAL // BATCH)
+    want = expected_counts(K1=LAUNCHES_PER_FORWARD * (steps + val_batches),
+                           K2=LAUNCHES_PER_FORWARD * steps, K5=steps)
+    out = {}
+
+    timing_path = os.path.join(root, "timing.json")
+
+    def cli_runs(deterministic: str, timing: str) -> dict:
+        runs = {}
+        for name in ("no_group", "torchrun"):
+            argv = ["--train_dir", root, "--val_dir", root, "--medmb_size",
+                    "T", "--image_size", str(IMAGE), "--batch_size",
+                    str(BATCH), "--epochs", "1", "--augmentation",
+                    "--dtype", "bfloat16", "--device", "cuda", "--save_dir",
+                    os.path.join(root, f"{name}_{deterministic}"),
+                    "--log_every", "0"]
+            path = os.path.join(root, f"{name}_{deterministic}.json")
+            t0 = time.perf_counter()
+            if name == "no_group":
+                dist_cli(path, deterministic, "-", *argv)
+            else:
+                run([*TORCHRUN, "--nproc_per_node", "1", runner, "dist_cli",
+                     path, deterministic, timing, *argv], DIST_ENV,
+                    "cli.train under torchrun")
+            with open(path) as f:
+                runs[name] = json.load(f)
+            runs[name]["wall_s"] = time.perf_counter() - t0
+            if runs[name]["counts"] != want:
+                raise SystemExit(f"cli.train ({name}) launched "
+                                 f"{runs[name]['counts']}, expected {want}")
+        a, b = runs["no_group"], runs["torchrun"]
+        runs["bitwise"] = (a["step_losses"] == b["step_losses"]
+                           and same_pth(a["last_path"], b["last_path"]))
+        log(f"  cli.train without a group ({a['wall_s']:.1f} s, in this "
+            f"process) and under torchrun world 1 on NCCL "
+            f"({b['wall_s']:.1f} s, main() {b['main_s']:.1f} s, then the "
+            f"timing below)"
+            f"{' under cudnn.deterministic' if deterministic == '1' else ''}: "
+            f"losses {a['step_losses']} and {b['step_losses']}; launches "
+            f"{b['counts']}; losses and last .pth bit for bit: "
+            f"{runs['bitwise']}")
+        return runs
+
+    out["cli"] = cli_runs("0", timing_path)
+    if not out["cli"]["bitwise"]:
+        out["cli_cudnn_deterministic"] = cli_runs("1", "-")
+        if not out["cli_cudnn_deterministic"]["bitwise"]:
+            raise SystemExit("cli.train under torchrun world 1 differs from "
+                             "the run without a group, also under "
+                             "cudnn.deterministic")
+    torch.cuda.empty_cache()
+
+    with open(timing_path) as f:
+        out["timing"] = t = json.load(f)
+    log(f"  graphed bf16 train step, world 1 on {t['backend']} "
+        f"({t['seconds']:.1f} s): with the "
+        f"group {t['group_ms']:.3f} ms, without {t['no_group_ms']:.3f} ms "
+        f"in turns ({' '.join(f'{v:.3f}' for v in t['in_turns_ms'])}); "
+        f"first losses bit for bit {t['first_loss_bitwise']}; collectives' "
+        f"device time a step {t['collective_ms']['group']:.4f} ms "
+        f"({t['collective_kernels']}); kernels a replay "
+        f"{t['kernel_ms']['group']:.3f} ms with, "
+        f"{t['kernel_ms']['no_group']:.3f} ms without; by family with "
+        f"{t['families']['group']}, without {t['families']['no_group']}")
+    if not t["first_loss_bitwise"]:
+        raise SystemExit("the graphed step's first loss differs with the "
+                         "world-1 group")
+
+    t0 = time.perf_counter()
+    run([*TORCHRUN, "--nproc_per_node", "2", runner, "dist_pair", root],
+        DIST_ENV, "the two gloo ranks")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"pair_{r}.json")) as f:
+            ranks.append(json.load(f))
+    b = ranks[0]["steps"]
+    log(f"  two gloo ranks on the card ({time.perf_counter() - t0:.1f} s, "
+        f"steps {ranks[0]['steps_s']:.1f} s, seq {ranks[0]['seq_s']:.1f} "
+        f"s; launches a rank a step {b['counts_a_step']}); ranks' "
+        f"parameters bit for bit "
+        f"{[r['steps']['ranks_bitwise'] for r in ranks]}")
+    failed = []
+    for dtype, rows in b["steps"].items():
+        for i, row in enumerate(rows):
+            if dtype == "float32":
+                lim = dict(loss=TOL_PAIR_F32_LOSS, stats=TOL_PAIR_F32_STATS,
+                           grad=TOL_PAIR_F32_GRAD, update=TOL_PAIR_F32_UPDATE)
+                grad_lim = f"limit {lim['grad']:g}"
+                update_lim = f" (limit {lim['update']:g})"
+            else:
+                lim = dict(loss=TOL_PAIR_LOSS, stats=TOL_PAIR_STATS,
+                           grad=PAIR_GRAD_FACTOR
+                           * row["grad_rel_err_fp32_blocks"],
+                           update=float("inf"))
+                grad_lim = (f"limit {PAIR_GRAD_FACTOR:g} x float32 blocks' "
+                            f"{row['grad_rel_err_fp32_blocks']:.3e}")
+                update_lim = ""
+            padded = f" ({PAIR_REAL} of {BATCH} rows real)" \
+                if i == PAIR_STEPS else ""
+            log(f"    {dtype} step {i + 1}{padded}: loss {row['loss']:.6f}, "
+                f"one process {row['loss_one_process']:.6f} "
+                f"({row['loss_rel_err']:.3e} of it, limit {lim['loss']:g}); "
+                f"BatchNorm statistics {row['stats_rel_err']:.3e} of their "
+                f"scale (limit {lim['stats']:g}); gradient "
+                f"{row['grad_rel_err']:.3e} in L2 ({grad_lim}; "
+                f"{100 * row['grad_worst_share']:.1f}% of it in "
+                f"{row['grad_worst']}); parameters "
+                f"{row['update_rel_err']:.3e} of the update in L2"
+                f"{update_lim}, at most {row['param_max_abs_err']:.3e} "
+                f"apart, {100 * row['param_share_over_lr_10']:.3f}% over "
+                f"lr/10")
+            if any(row[f"{k}_rel_err"] > v for k, v in lim.items()):
+                failed.append((dtype, i + 1))
+    for r in ranks:
+        for row in r["seq"][:-1]:
+            log(f"  rank {ranks.index(r)} split scan, batch {row['batch']} "
+                f"L {row['l']}: y {row['y_err_vs_k1']:.2e} of its scale off "
+                f"K1 whole, {row['y_err_vs_plain']:.2e} off the plain scan; "
+                f"final state {row['h_err_vs_k1']:.2e}, "
+                f"{row['h_err_vs_plain']:.2e}; split call "
+                f"{row['split_ms']:.3f} ms, K1 on the half "
+                f"{row['k1_ms']:.4f} ms ({100 * row['k1_share']:.1f}%)")
+    log(f"  the kernel path under autograd: {ranks[0]['seq'][-1]['raised']}")
+    if not all(all(r["steps"]["ranks_bitwise"].values()) for r in ranks):
+        raise SystemExit("the two ranks' parameters differ")
+    if failed:
+        raise SystemExit(f"two ranks against one process: over a limit at "
+                         f"(blocks, step) {failed}")
+    out["pair"] = dict(ranks[0]["steps"], seconds=time.perf_counter() - t0,
+                       seq=[r["seq"][:-1] for r in ranks])
+    return out
+
+
 def phase_timing(model):
     """Forward throughput (back-to-back forwards between one event pair)
     and the device time per forward by kernel family."""
@@ -3210,6 +3818,20 @@ def main() -> int:
         others = other_models_process(root)
     seg = others["vssmseg"]
 
+    header("phase 25: distribution (cli.train under torchrun, world 1 on "
+           "NCCL, against no group; two gloo ranks on the card against one "
+           "process; the sequence-parallel scan on K1)")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        dist_out = phase_distribution(root)
+    log("distribution " + json.dumps(dist_out))
+    dist_launches = {
+        k: {"cli_torchrun_world1": dist_out["cli"]["torchrun"]["counts"][k],
+            "two_gloo_ranks_per_rank_step": dist_out["pair"][
+                "counts_a_step"][k]}
+        for k in ("K1", "K2", "K5")}
+    dist_launches["K1"]["seq_parallel_per_rank_call"] = \
+        dist_out["pair"]["seq"][0][0]["counts"]["K1"]
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -3228,7 +3850,8 @@ def main() -> int:
         "ms_per_forward_batch1": k1_b1["ms_batch1"],
         "device_ms_per_forward_batch1": k1_b1["device_ms_batch1"],
         "eval_img_s": img_s, "bf16_compute": bf16["K1"],
-        "launches_vssmseg_forward": seg["launches_forward"]["K1"]}, {
+        "launches_vssmseg_forward": seg["launches_forward"]["K1"],
+        "launches_distributed": dist_launches["K1"]}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
@@ -3243,7 +3866,8 @@ def main() -> int:
         "model_grad_rel_err_vs_plain_scan": grad_err_plain_scan,
         "bf16_compute": bf16["K2"],
         "launches_vssmseg_backward": seg["launches_backward"]["K2"],
-        "vssmseg_grad_rel_err": seg["grad_rel_err"]}, {
+        "vssmseg_grad_rel_err": seg["grad_rel_err"],
+        "launches_distributed": dist_launches["K2"]}, {
         "name": "rotate_flip", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
         "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
@@ -3255,7 +3879,8 @@ def main() -> int:
         "library_ms": None,
         "ms_28": rot[28]["ms"], "device_ms": rot[IMAGE]["device_ms"],
         "device_ms_28": rot[28]["device_ms"],
-        "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0)}, {
+        "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0),
+        "launches_distributed": dist_launches["K5"]}, {
         "name": "selective_scan_hillis_fwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_fwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:877",

@@ -10,8 +10,19 @@ step and the eval step are CUDA graphs (``train/trainer.py:
 compile_train_step``, ``compile_eval_step``), or, when asked, eagerly on
 the CPU.
 
+Under ``torchrun`` every process runs this CLI as one rank of a
+data-parallel group (``parallel/mesh.py``; NCCL on the card, one card a
+rank; gloo on the CPU): each builds the same seeded global shuffle and
+steps on its slice of every global batch (``--batch_size`` stays the
+global batch), the steps compute what one process computes on the whole
+batch (``train/trainer.py``), rank 0 alone writes the ``.pth`` files and
+``class_indices.json``, every rank loads ``--resume``. Without torchrun no
+group is made and nothing changes.
+
 Usage:
     python -m medmamba_tpu_torch.cli.train --train_dir D --val_dir D [options]
+    torchrun --nproc_per_node N -m medmamba_tpu_torch.cli.train ... (one
+        rank a card)
 """
 from __future__ import annotations
 
@@ -103,23 +114,56 @@ def _step_profiler(out_dir: str, device):
 def main(argv=None):
     """Train. Returns a dict: ``best_path`` (None when no epoch improved
     on the starting accuracy), ``last_path`` (None when there was nothing to
-    do), ``best_acc``, and the last epoch's ``train_loss`` and ``img_s``."""
+    do), ``best_acc``, the last epoch's ``train_loss`` and ``img_s``, and
+    ``step_losses``, every step's (global batch's) loss in order."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s - %(levelname)s - %(message)s")
-    import torch
+    import torch.distributed as dist
 
-    from medmamba_tpu_torch.data.datasets import is_npz_dir, open_dataset
-    from medmamba_tpu_torch.data.loader import BatchLoader
-    from medmamba_tpu_torch.models.registry import create_model
-    from medmamba_tpu_torch.train import checkpoint as ckpt
-    from medmamba_tpu_torch.train.trainer import (compile_eval_step,
-                                                  compile_train_step,
-                                                  eval_step, make_optimizer,
-                                                  train_step)
+    from medmamba_tpu_torch.parallel.mesh import (destroy_mesh, make_mesh,
+                                                  rank_device)
     from medmamba_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
+    owned = not dist.is_initialized()
+    mesh = make_mesh(device=device)
+    try:
+        return _train(args, rank_device(mesh) if mesh is not None
+                      else device, mesh)
+    finally:
+        if owned:
+            destroy_mesh()
+
+
+def _train(args, device, mesh):
+    import torch
+    import torch.distributed as dist
+
+    from medmamba_tpu_torch.data.datasets import is_npz_dir, open_dataset
+    from medmamba_tpu_torch.data.loader import BatchLoader, device_prefetch
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.parallel.mesh import (data_group, process_slice,
+                                                  replicate_state,
+                                                  shard_batch)
+    from medmamba_tpu_torch.train import checkpoint as ckpt
+    from medmamba_tpu_torch.train.trainer import (compile_eval_step,
+                                                  compile_train_step,
+                                                  eval_step,
+                                                  make_optimizer, train_step)
+
+    pi, pc = process_slice(mesh)
+    group = data_group(mesh)
+    main_rank = pi == 0
+
+    def written():
+        """Rank 0 has written its files: the others may go on."""
+        if group is not None:
+            dist.barrier(group=group)
+
+    if group is not None:
+        log.info("Rank %d of %d (%s) on %s.", pi, pc,
+                 dist.get_backend(group), device)
     os.makedirs(args.save_dir, exist_ok=True)
     if args.fast_decode:
         os.environ["MEDMAMBA_FAST_DECODE"] = "1"
@@ -150,12 +194,16 @@ def main(argv=None):
             log.warning("--num_classes (%d) overrides inferred classes (%d).",
                         args.num_classes, num_classes)
         num_classes = args.num_classes
-    ckpt.save_class_indices(args.save_dir, class_indices)
+    if main_rank:
+        ckpt.save_class_indices(args.save_dir, class_indices)
+    written()
 
     train_loader = BatchLoader(train_ds, batch_size, shuffle=True,
-                               seed=args.seed)
+                               seed=args.seed, process_index=pi,
+                               process_count=pc)
     val_loader = BatchLoader(val_ds, batch_size, shuffle=False,
-                             seed=args.seed)
+                             seed=args.seed, process_index=pi,
+                             process_count=pc)
     steps_per_epoch = len(train_loader)
     log.info("Using %d train / %d val images, %d classes on %s. Epochs %d, "
              "batch %d, lr %g", len(train_ds), len(val_ds), num_classes,
@@ -185,6 +233,7 @@ def main(argv=None):
         else:
             log.error("Checkpoint not found: %s. Starting from scratch.",
                       args.resume)
+    replicate_state(model, opt, mesh)
 
     if epochs < start_epoch:
         log.warning("Target epochs (%d) < start epoch (%d); nothing to do.",
@@ -192,7 +241,7 @@ def main(argv=None):
         print(f"Finished Training (Target Epoch <= Start Epoch). "
               f"Best validation accuracy recorded: {best_acc:.3f}")
         return dict(best_path=None, last_path=None, best_acc=best_acc,
-                    train_loss=None, img_s=None)
+                    train_loss=None, img_s=None, step_losses=[])
 
     # one generator for every training draw (flips, angles, DropPath), on
     # the device that draws them, seeded anew from --seed and the epoch so
@@ -214,16 +263,23 @@ def main(argv=None):
             return compiled_eval(images, labels, **static)
     else:
         def run_train(images, labels):
-            return train_step(model, opt, images.to(device),
-                              labels.to(device), generator=generator,
-                              augment=args.augmentation, **static)
+            return train_step(model, opt, images, labels,
+                              generator=generator, augment=args.augmentation,
+                              **static)
 
         def run_eval(images, labels):
-            return eval_step(model, images.to(device), labels.to(device),
-                             **static)
+            return eval_step(model, images, labels, **static)
+
+    def on_device(loader_epoch):
+        """The loader's batches on this rank's device, copied ahead."""
+        return device_prefetch(
+            loader_epoch,
+            lambda im, lb: shard_batch(mesh, im, lb, device=device),
+            device=device)
     epochs_without_improvement = 0
     final_epoch = start_epoch - 1
     avg_loss = ips = None
+    step_losses = []
     for epoch in range(start_epoch, epochs + 1):
         final_epoch = epoch
         generator.manual_seed((args.seed + 1) * 1_000_003 + epoch)
@@ -231,13 +287,13 @@ def main(argv=None):
         running_loss, nsteps = 0.0, 0
         pending = deque()  # device losses, read two steps late so the host
         # stays ahead of the card
-        profiling = bool(args.profile_dir) and epoch == start_epoch
+        profiling = (bool(args.profile_dir) and epoch == start_epoch
+                     and main_rank)
         prof = (_step_profiler(args.profile_dir, device) if profiling
                 else contextlib.nullcontext())
         with prof:
-            for images, labels in train_loader.epoch(epoch):
-                loss = run_train(torch.from_numpy(images),
-                                 torch.from_numpy(labels))
+            for images, labels in on_device(train_loader.epoch(epoch)):
+                loss = run_train(images, labels)
                 # a graph's loss is overwritten by its next replay
                 pending.append(loss.clone())
                 nsteps += 1
@@ -246,21 +302,25 @@ def main(argv=None):
                 if len(pending) > 2:
                     lval = float(pending.popleft())
                     running_loss += lval
-                    if args.log_every and nsteps % args.log_every == 0:
+                    step_losses.append(lval)
+                    if (args.log_every and nsteps % args.log_every == 0
+                            and main_rank):
                         print(f"\rtrain epoch[{epoch}/{epochs}] "
                               f"step {nsteps}/{steps_per_epoch} "
                               f"loss:{lval:.3f}", end="", flush=True)
         while pending:
-            running_loss += float(pending.popleft())
-        if args.log_every:
+            lval = float(pending.popleft())
+            running_loss += lval
+            step_losses.append(lval)
+        if args.log_every and main_rank:
             print()
         if sched is not None:
             sched.step()
         train_time = time.time() - t0
 
         correct = torch.zeros((), dtype=torch.long, device=device)
-        for images, labels in val_loader.epoch(0):
-            c, _ = run_eval(torch.from_numpy(images), torch.from_numpy(labels))
+        for images, labels in on_device(val_loader.epoch(0)):
+            c, _ = run_eval(images, labels)
             correct += c
         val_acc = int(correct) / len(val_ds)
         avg_loss = running_loss / max(nsteps, 1)
@@ -268,21 +328,26 @@ def main(argv=None):
         msg = (f"[Epoch {epoch}/{epochs}] Train Loss: {avg_loss:.3f} | "
                f"Val Accuracy: {val_acc:.3f} | {ips:.1f} img/s")
         log.info(msg)
-        print(msg)
+        if main_rank:
+            print(msg)
 
         if val_acc > best_acc:
             best_acc = val_acc
             epochs_without_improvement = 0
             new_best = os.path.join(
                 args.save_dir, f"{args.model_name}_epoch_{epoch}_best.pth")
-            ckpt.save_checkpoint(new_best, model, opt, epoch=epoch,
-                                 best_acc=best_acc, num_classes=num_classes,
-                                 class_indices=class_indices)
-            log.info("New best checkpoint saved to %s (acc %.3f)", new_best,
-                     best_acc)
-            if best_path != new_best:
-                # the old best goes only now that the new one is in place
-                ckpt.delete_checkpoint(best_path)
+            if main_rank:
+                ckpt.save_checkpoint(new_best, model, opt, epoch=epoch,
+                                     best_acc=best_acc,
+                                     num_classes=num_classes,
+                                     class_indices=class_indices)
+                log.info("New best checkpoint saved to %s (acc %.3f)",
+                         new_best, best_acc)
+                if best_path != new_best:
+                    # the old best goes only now that the new one is in
+                    # place
+                    ckpt.delete_checkpoint(best_path)
+            written()
             best_path = new_best
         else:
             epochs_without_improvement += 1
@@ -298,14 +363,16 @@ def main(argv=None):
 
     last_path = os.path.join(args.save_dir,
                              f"{args.model_name}_epoch_{final_epoch}_last.pth")
-    ckpt.save_checkpoint(last_path, model, opt, epoch=final_epoch,
-                         best_acc=best_acc, num_classes=num_classes,
-                         class_indices=class_indices)
-    log.info("Saved last checkpoint to %s", last_path)
-    print(f"Finished Training. Final Epoch Reached: {final_epoch}. "
-          f"Best validation accuracy: {best_acc:.3f}")
+    if main_rank:
+        ckpt.save_checkpoint(last_path, model, opt, epoch=final_epoch,
+                             best_acc=best_acc, num_classes=num_classes,
+                             class_indices=class_indices)
+        log.info("Saved last checkpoint to %s", last_path)
+        print(f"Finished Training. Final Epoch Reached: {final_epoch}. "
+              f"Best validation accuracy: {best_acc:.3f}")
+    written()
     return dict(best_path=best_path, last_path=last_path, best_acc=best_acc,
-                train_loss=avg_loss, img_s=ips)
+                train_loss=avg_loss, img_s=ips, step_losses=step_losses)
 
 
 if __name__ == "__main__":

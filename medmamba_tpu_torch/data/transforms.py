@@ -16,7 +16,7 @@ one kernel on the card (``ops/rotate.py``, K5).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,31 +97,46 @@ def _rotate_nearest(img: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
                            torch.zeros(1, dtype=torch.bool))[0]
 
 
+def global_rand(generator: torch.Generator, b: int,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``b`` uniform draws from ``generator`` (on its device). With ``rows``
+    = (start, total) the draws are made for a global batch of ``total``
+    rows and rows [start, start + b) are kept, so every rank of a
+    data-parallel step draws what one process draws for the whole batch."""
+    if rows is None:
+        return torch.rand(b, generator=generator, device=generator.device)
+    start, total = rows
+    return torch.rand(total, generator=generator,
+                      device=generator.device)[start:start + b]
+
+
 def random_augment(x: torch.Tensor, generator: torch.Generator,
-                   max_rotate_deg: float = 10.0) -> torch.Tensor:
+                   max_rotate_deg: float = 10.0,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Per image RandomHorizontalFlip(p=0.5) then RandomRotation(+/-deg) of a
     float NHWC batch. The flips and angles are drawn from ``generator`` (on
-    its device) and never from the global generator."""
+    its device) and never from the global generator; ``rows`` places the
+    batch in a global one (:func:`global_rand`)."""
     b = x.shape[0]
-    dev = generator.device
-    flip = torch.rand(b, generator=generator, device=dev) < 0.5
+    flip = global_rand(generator, b, rows) < 0.5
     max_rad = math.radians(max_rotate_deg)
-    angles = (2.0 * torch.rand(b, generator=generator, device=dev) - 1.0) \
-        * max_rad
+    angles = (2.0 * global_rand(generator, b, rows) - 1.0) * max_rad
     return rotate_flip(x, angles.to(x.device), flip.to(x.device))
 
 
 def preprocess(images: torch.Tensor, *, size: int = 224,
                augment: bool = False,
-               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None,
+               rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """uint8 NHWC batch -> normalised float32 (B, size, size, 3), on the
     batch's device. ``augment`` flips and rotates at the batch's own
-    resolution before the resize, with draws from ``generator``."""
+    resolution before the resize, with draws from ``generator`` (for the
+    global batch that ``rows`` names, see :func:`global_rand`)."""
     x = images.float()
     if augment:
         if generator is None:
             raise ValueError("augment=True needs a torch.Generator")
-        x = random_augment(x, generator)
+        x = random_augment(x, generator, rows=rows)
     return normalize(resize(x, size))
 
 

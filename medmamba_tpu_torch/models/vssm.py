@@ -38,12 +38,15 @@ import re
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from medmamba_tpu_torch.data.transforms import global_rand
 from medmamba_tpu_torch.ops.cross_scan import cross_merge_fr, cross_scan_fwd
 from medmamba_tpu_torch.ops.selective_scan import selective_scan
+from medmamba_tpu_torch.parallel.mesh import all_reduce_sum, data_group
 
 # ---------------------------------------------------------------------------
 # Initializers (the distributions of medmamba_tpu/models/vssm.py:46-94), all
@@ -140,15 +143,17 @@ class DropPath(nn.Module):
         self.rate = rate
 
     def sample(self, batch: int, generator: Optional[torch.Generator],
-               device) -> Optional[torch.Tensor]:
+               device, rows: Optional[Tuple[int, int]] = None
+               ) -> Optional[torch.Tensor]:
         """The per-sample keep mask (bool, (batch,)) of one training
-        forward, or None where the layer is the identity."""
+        forward, or None where the layer is the identity; ``rows`` =
+        (start, total) draws it for a global batch of ``total`` rows and
+        keeps this batch's (``data/transforms.py: global_rand``)."""
         if not self.training or self.rate == 0.0:
             return None
         if generator is None:
             raise ValueError("DropPath in training needs a torch.Generator")
-        return (torch.rand(batch, generator=generator,
-                           device=generator.device) < 1.0 - self.rate
+        return (global_rand(generator, batch, rows) < 1.0 - self.rate
                 ).to(device)
 
     def forward(self, x: torch.Tensor,
@@ -172,6 +177,12 @@ class MaskedBatchNorm(nn.Module):
     in the input's dtype, as the JAX ``MaskedBatchNorm`` does. With
     ``update_stats`` false (a recomputation under activation
     checkpointing) the running statistics are left as they are.
+
+    In training under an active mesh whose data axis has more than one rank
+    (``parallel/mesh.py``), the masked sums (the count, Σx·w, Σx²·w, one
+    vector) are summed over the data axis first, so the batch statistics,
+    their gradients and the running statistics are the global batch's, as
+    GSPMD makes them for the JAX module on a mesh.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
@@ -194,7 +205,10 @@ class MaskedBatchNorm(nn.Module):
         else:
             xf = x.float()
             red = [0] + list(range(2, x.ndim))
-            if mask is None:
+            group = data_group()
+            if group is not None and dist.get_world_size(group) > 1:
+                mean, var = self._global_stats(xf, mask, red, group)
+            elif mask is None:
                 mean = xf.mean(red)
                 var = (xf * xf).mean(red) - mean * mean
             else:
@@ -215,6 +229,25 @@ class MaskedBatchNorm(nn.Module):
         dt = x.dtype
         return (x - mean.to(dt).reshape(shape)) * inv.to(dt).reshape(shape) \
             + self.bias.to(dt).reshape(shape)
+
+
+    @staticmethod
+    def _global_stats(xf: torch.Tensor, mask: Optional[torch.Tensor], red,
+                      group) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Mean and biased variance of the valid rows of every rank's
+        batch: the rank's masked sums, packed into one vector, summed over
+        ``group`` by one differentiable all-reduce."""
+        w = (torch.ones(xf.shape[0], device=xf.device) if mask is None
+             else mask.float())
+        per_sample = float(math.prod(xf.shape[2:]))
+        wb = w.reshape((xf.shape[0],) + (1,) * (xf.ndim - 1))
+        sums = all_reduce_sum(torch.cat([
+            (w.sum() * per_sample).reshape(1), (xf * wb).sum(red),
+            (xf * xf * wb).sum(red)]), group)
+        c = xf.shape[1]
+        cnt = torch.clamp_min(sums[0], 1.0)
+        mean = sums[1:1 + c] / cnt
+        return mean, sums[1 + c:] / cnt - mean * mean
 
 
 @contextlib.contextmanager
@@ -463,9 +496,11 @@ class VSSLayer(nn.Module):
         self.taps = {}        # Grad-CAM tap "": the stage's output
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         for blk in self.blocks:
-            keep = blk.drop_path.sample(x.shape[0], generator, x.device)
+            keep = blk.drop_path.sample(x.shape[0], generator, x.device,
+                                        rows)
             if self.use_checkpoint and torch.is_grad_enabled():
                 # activations rematerialised in the backward, as nn.remat
                 # does in the JAX model; the recomputation reuses the keep
@@ -525,21 +560,25 @@ class VSSM(nn.Module):
 
     def forward_backbone(self, x: torch.Tensor,
                          mask: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         rows: Optional[Tuple[int, int]] = None
                          ) -> torch.Tensor:
         """Feature extractor: the final NHWC feature map, in the block
         dtype. ``mask`` marks the rows that count in the BatchNorm
-        statistics; ``generator`` feeds DropPath in training."""
+        statistics; ``generator`` feeds DropPath in training, its draws
+        made for the global batch that ``rows`` = (start, total) names
+        (``DropPath.sample``)."""
         x = self.patch_embed(x.to(self.dtype))
         if self.pos_drop is not None:
             x = self.pos_drop(x)
         for layer in self.layers:
-            x = layer(x, mask, generator)
+            x = layer(x, mask, generator, rows)
         return x
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.forward_backbone(x, mask, generator)
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        x = self.forward_backbone(x, mask, generator, rows)
         return _linear(self.head, x.mean(dim=(1, 2)), self.dtype).float()
 
     def tap_site(self, path: Union[str, Sequence[str]]

@@ -293,11 +293,28 @@ def selective_scan_bwd_ref(u: torch.Tensor, delta: torch.Tensor,
             torch.stack(dC, dim=1).to(C.dtype), dD, dbias)
 
 
+LAST_STATE_GRAD_ERROR = (
+    "a gradient reached the selective scan's last state, which the scan "
+    "kernels do not differentiate (nor do the JAX package's Pallas "
+    "kernels); only y has a backward on this path. Differentiate through "
+    "the last state with impl='ref'")
+
+
+def _refuse_last_state_grad(glast) -> None:
+    """Raise where a cotangent reached the last state. The functions leave
+    their outputs' gradients unmaterialized, so an unused output's is None
+    and the check makes no host sync."""
+    if glast is not None:
+        raise RuntimeError(LAST_STATE_GRAD_ERROR)
+
+
 class _KernelScan(torch.autograd.Function):
     """K1 forward, K2 backward: the counterpart of the JAX package's
     ``custom_vjp`` around its scan kernels (``pallas_scan.py:1585-1648``).
     ``kw`` holds the compute mode too, so the backward runs in the mode of
-    the forward that ran, whatever the variable says by then."""
+    the forward that ran, whatever the variable says by then. K2 gives
+    y's gradient only: a gradient that reaches the last state raises in
+    the backward, as the JAX kernels cannot be differentiated there."""
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D, delta_bias, return_last_state,
@@ -307,13 +324,14 @@ class _KernelScan(torch.autograd.Function):
             return_last_state=return_last_state, return_states=True, **kw)
         ctx.save_for_backward(u, delta, A, B, C, D, delta_bias, states)
         ctx.kw = {k: v for k, v in kw.items() if k != "out_dtype"}
+        ctx.set_materialize_grads(False)
         if return_last_state:
-            ctx.mark_non_differentiable(last)
             return y, last
         return y
 
     @staticmethod
-    def backward(ctx, gy, *_):
+    def backward(ctx, gy, glast=None):
+        _refuse_last_state_grad(glast)
         u, delta, A, B, C, D, delta_bias, states = ctx.saved_tensors
         grads = scan_cuda.selective_scan_bwd(
             u, delta, A, B, C, D, delta_bias, states, gy.contiguous(),
@@ -575,8 +593,9 @@ class _HillisScan(torch.autograd.Function):
     passes K3's and K4's launchers (``ops/scan_hillis.py``) or their plain
     versions; nothing here chooses between them. Both run in the compute
     mode ``compute``, the backward in the forward's. Returns ``(y, last)``,
-    y in float32, the last state not differentiable; the gradients come
-    back in the dtypes of their primals.
+    y in float32; the gradients come back in the dtypes of their primals.
+    The adjoint is y's only: a gradient that reaches the last state raises
+    in the backward, as in :class:`_KernelScan`.
     """
 
     @staticmethod
@@ -589,11 +608,12 @@ class _HillisScan(torch.autograd.Function):
         ctx.kw = dict(delta_softplus=delta_softplus, valid_len=valid_len,
                       compute=compute)
         ctx.bwd = bwd
-        ctx.mark_non_differentiable(last)
+        ctx.set_materialize_grads(False)
         return y, last
 
     @staticmethod
-    def backward(ctx, gy, _):
+    def backward(ctx, gy, glast):
+        _refuse_last_state_grad(glast)
         saved = ctx.saved_tensors
         grads = ctx.bwd(*saved, gy.float().contiguous(), **ctx.kw)
         grads = tuple(None if gr is None else gr.to(x.dtype)
@@ -672,7 +692,10 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
 
     out_dtype: y's dtype (float32 by default; under ``hillis`` y is float32
     whatever it asks, as the TPU kernel stores it); the last state is
-    float32.
+    float32. On a CUDA tensor under "auto" the kernels' backward gives y's
+    gradient only, and a gradient that reaches the last state raises in
+    the backward; "ref" differentiates both, as the JAX package's "assoc"
+    does beside its Pallas kernels.
 
     valid_len: positions >= valid_len are padding: dt = 0 there (decay 1,
     inject 0), so the state passes through them unchanged in either

@@ -1,1 +1,1 @@
-"""Checkpoint loading (training is not ported yet)."""
+"""Training: the optimizer, the steps and checkpoints."""

@@ -16,6 +16,20 @@ One step: on-device preprocessing (flip + rotation when augmenting, resize,
 normalisation) -> forward in train mode -> loss -> backward -> AdamW. The
 random draws (augmentation, DropPath) come from the caller's generator.
 
+Data parallelism (``parallel/mesh.py``): under an active mesh each rank
+steps on its contiguous slice of the global batch and the step computes
+what one process computes on the whole batch, as the JAX package's step
+does on a mesh: draws for the global batch, each rank keeping its rows;
+BatchNorm statistics over the global batch (``MaskedBatchNorm``); the loss
+as the rank's sum over its valid rows divided by the global valid count;
+the gradients and that loss summed over the data axis in one flat
+all-reduce before AdamW, so every rank applies the same update and
+returns the global loss. ``eval_step``'s count is summed over ranks. A
+``DistributedDataParallel`` step would average per-rank means and
+normalise with per-rank statistics, which differ from this whenever ranks
+hold different numbers of valid rows, and at every step in BatchNorm.
+Without a mesh no collective runs.
+
 ``train_step``, ``eval_step`` and ``predict`` (the served softmax forward)
 are the eager steps: the library API on any device, and the reference the
 graphs are held against. ``compile_train_step``, ``compile_eval_step`` and
@@ -25,16 +39,20 @@ steps; the CLIs run those on the card. The optimizer is built for that:
 its learning rate is a tensor on the parameters' device, which
 ``MultiStepLR`` fills in place, and on the card it is ``capturable`` (its
 step counters live on the card), so a captured step reads each epoch's
-rate and makes no host sync.
+rate and makes no host sync. Under a mesh the graphs hold the steps'
+NCCL collectives; a gloo group's cannot be captured, so under one the
+eager steps run.
 """
 from __future__ import annotations
 
 from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from medmamba_tpu_torch.data.transforms import preprocess, preprocess_imagenet
+from medmamba_tpu_torch.parallel.mesh import data_group
 from medmamba_tpu_torch.utils import graphs
 
 
@@ -66,13 +84,45 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], lr: float,
     return opt, sched
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """Mean cross-entropy over the rows with label >= 0; 0 (not NaN) when no
-    row is valid."""
+    row is valid. With a data-axis ``group``, this rank's sum over its valid
+    rows divided by the valid count of the global batch (one all-reduce of
+    the count, no host sync): the ranks' losses sum to the global mean."""
     valid = labels >= 0
     losses = F.cross_entropy(logits.float(), labels.clamp_min(0),
                              reduction="none")
-    return (losses * valid).sum() / valid.sum().clamp_min(1)
+    count = valid.sum()
+    if group is not None:
+        count = count.float()
+        dist.all_reduce(count, group=group)
+    return (losses * valid).sum() / count.clamp_min(1)
+
+
+def rank_rows(batch: int, group) -> Optional[Tuple[int, int]]:
+    """(first row, rows) of this rank's slice of the global batch, the
+    ``rows`` argument of the draws; None without a group."""
+    if group is None:
+        return None
+    return (dist.get_rank(group) * batch,
+            dist.get_world_size(group) * batch)
+
+
+def sum_grads(params: Sequence[torch.nn.Parameter], loss: torch.Tensor,
+              group) -> torch.Tensor:
+    """Sum the gradients of the parameters that have one, and ``loss``, over
+    ``group`` through one flat buffer (one collective, not one a
+    parameter); those gradients become views of the summed buffer, and a
+    parameter without a gradient keeps none, so AdamW leaves it alone as it
+    does in one process. Every rank runs the same graph, so every rank
+    flattens the same parameters. Returns the summed loss."""
+    params = [p for p in params if p.grad is not None]
+    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+        p.grad = g.view_as(p)
+    return flat[-1]
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
@@ -80,16 +130,23 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                generator: torch.Generator, augment: bool = False,
                image_size: int = 224) -> torch.Tensor:
     """One step on a uint8 NHWC batch and its labels, both on the model's
-    device. Returns the loss as a device scalar (no host sync)."""
+    device (under a mesh: this rank's slice of the global batch). Returns
+    the (global batch's) loss as a device scalar (no host sync)."""
     model.train()
+    group = data_group()
+    rows = rank_rows(images_u8.shape[0], group)
     x = preprocess(images_u8, size=image_size, augment=augment,
-                   generator=generator)
-    logits = model(x, labels >= 0, generator=generator)
-    loss = cross_entropy(logits, labels)
+                   generator=generator, rows=rows)
+    logits = model(x, labels >= 0, generator=generator, rows=rows)
+    loss = cross_entropy(logits, labels, group)
     opt.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if group is not None:
+        loss = sum_grads([p for g in opt.param_groups for p in g["params"]],
+                         loss, group)
     opt.step()
-    return loss.detach()
+    return loss
 
 
 @torch.no_grad()
@@ -97,10 +154,14 @@ def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
               labels: torch.Tensor, *, image_size: int = 224
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(number of correct rows among those with label >= 0, logits) of a
-    batch, in eval mode; both stay on the device."""
+    batch, in eval mode; both stay on the device. Under a mesh the count is
+    summed over the data axis (the logits stay this rank's)."""
     model.eval()
     logits = model(preprocess(images_u8, size=image_size))
     correct = ((logits.argmax(-1) == labels) & (labels >= 0)).sum()
+    group = data_group()
+    if group is not None:
+        dist.all_reduce(correct, group=group)
     return correct, logits
 
 

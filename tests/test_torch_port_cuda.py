@@ -8,7 +8,13 @@ graph ops of ``ops/scan_op.py`` and an exported artifact on the card, and
 the compiled steps (``-k graph``: CUDA graphs of the forward and the train
 step against the eager ones, bit for bit where two eager runs agree), and
 the other models (``-k "backbone or vssmseg"``: the CAM backbones' logits
-against the CPU's, ``VSSMSeg``'s 40 K1 a forward and 40 K2 a backward).
+against the CPU's, ``VSSMSeg``'s 40 K1 a forward and 40 K2 a backward),
+and distribution (``-k "distributed or seq_parallel or last_state"``: the
+kernel path refusing a gradient through the last state, a world-1 NCCL
+group's graphed step against the eager step without a group, the
+sequence-parallel scan over two gloo ranks on the card; on a machine with
+several cards, one NCCL rank a card: the graphed steps against the eager
+ones under the group, and ``cli.train`` against one process).
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -1348,3 +1354,196 @@ def test_vssmseg_launches_the_kernels_once_per_scan(cuda):
     model(x).square().mean().backward()
     torch.cuda.synchronize()
     assert scan_cuda.LAUNCHES == 80 and scan_cuda.BWD_LAUNCHES == 40
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_kernel_path_refuses_a_gradient_through_the_last_state(cuda, scan,
+                                                               monkeypatch):
+    """K2 and K4 give y's gradient only: a loss that uses the last state
+    raises in the backward (it lost that gradient without a word before);
+    through y alone the gradients are the plain scan's, to 1e-4 of each
+    one's scale."""
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    x = _inputs(cuda, b=2, dpg=8, l=150)
+    gy = torch.randn(x["delta"].shape, device=cuda)
+
+    def leaves():
+        return {k: v.clone().requires_grad_() for k, v in x.items()}
+    args = leaves()
+    y, last = selective_scan(**args, delta_softplus=True,
+                             return_last_state=True)
+    with pytest.raises(RuntimeError, match="last state"):
+        ((y * gy).sum() + last.sum()).backward()
+    args = leaves()
+    y, _ = selective_scan(**args, delta_softplus=True, return_last_state=True)
+    (y * gy).sum().backward()
+    want = leaves()
+    (selective_scan(**want, delta_softplus=True, impl="ref") * gy
+     ).sum().backward()
+    for k in x:
+        ref = want[k].grad
+        assert (args[k].grad - ref).abs().max() <= 1e-4 * ref.abs().max(), k
+
+
+def test_distributed_world1_nccl_graphed_step_gives_the_eager_bits(
+        cuda, tmp_path, monkeypatch):
+    """A world-1 NCCL group: the train step captured with its collectives
+    (the loss's count, the flat gradient sum) as a CUDA graph gives the
+    bits of the eager step without a group, over 3 steps (bf16 blocks, a
+    tiny VSSM at 32^2, augmentation)."""
+    from medmamba_tpu_torch.parallel import mesh
+    from medmamba_tpu_torch.train import trainer
+
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    kw = dict(num_classes=3, depths=(1, 2), dims=(16, 32),
+              dtype=torch.bfloat16)
+    state = tv.VSSM(**kw).state_dict()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    images = torch.randint(0, 256, (8, 32, 32, 3), generator=gen,
+                           device="cuda", dtype=torch.uint8)
+    labels = torch.tensor([0, 1, 2, 0, 1, 2, -1, -1], device="cuda")
+
+    def run(graphed):
+        model = tv.VSSM(**kw).to(cuda)
+        model.load_state_dict(state)
+        opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        if graphed:
+            step = trainer.compile_train_step(model, opt, generator=g)
+            losses = [step(images, labels, augment=True,
+                           image_size=32).clone() for _ in range(3)]
+            step.free()
+        else:
+            losses = [trainer.train_step(model, opt, images, labels,
+                                         generator=g, augment=True,
+                                         image_size=32) for _ in range(3)]
+        return torch.stack(losses), model.state_dict()
+
+    eager_losses, eager_state = run(False)
+    grid = mesh.make_mesh(device="cuda", rank=0, world_size=1,
+                          init_method=f"file://{tmp_path / 'rendezvous'}")
+    try:
+        assert torch.distributed.get_backend(mesh.data_group(grid)) == "nccl"
+        graph_losses, graph_state = run(True)
+    finally:
+        mesh.destroy_mesh()
+    assert torch.equal(graph_losses, eager_losses)
+    for k, v in eager_state.items():
+        assert torch.equal(graph_state[k], v), k
+
+
+def _cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} cards")
+    from medmamba_tpu_torch.ops import cuda_build
+
+    # built once here, so that the ranks load it and never race a build
+    cuda_build.build(scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE,
+                     rotate.SOURCE)
+    return torch.cuda.device_count()
+
+
+def test_distributed_graphed_steps_across_cards(cuda, tmp_path,
+                                                monkeypatch):
+    """One NCCL rank a card (every card of the machine, at least two): the
+    train step captured as a CUDA graph with its collectives gives the
+    eager step's bits under the same group over 3 steps, and the graphed
+    eval step the eager summed count; the ranks hold the same state; the
+    first step's loss within 1e-2 of one process's on the whole batch
+    (bf16 blocks: the ranks' kernels run smaller batches and round their
+    bfloat16 outputs apart). A tiny VSSM at 32^2, global batch 8 with two
+    padding rows, so at four ranks the last rank holds no valid row."""
+    import torch_port_ranks as ranks
+
+    from medmamba_tpu_torch.train import trainer
+
+    world = _cards(2)
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    kw = dict(num_classes=3, depths=(1, 2), dims=(16, 32),
+              dtype=torch.bfloat16)
+    weights = tv.VSSM(**kw).state_dict()
+    gen = torch.Generator().manual_seed(0)
+    batch = 2 * world
+    images = torch.randint(0, 256, (batch, 32, 32, 3), generator=gen,
+                           dtype=torch.uint8)
+    labels = torch.arange(batch) % 3
+    labels[-2:] = -1
+    got = ranks.spawn(ranks.graphed_steps, world, tmp_path, kw, weights,
+                      images, labels, 3, 32, device="cuda", backend="nccl")
+    for g in got:
+        assert torch.equal(g["graphed"]["losses"], g["eager"]["losses"])
+        assert g["graphed"]["correct"] == g["eager"]["correct"]
+        for k, v in g["eager"]["state"].items():
+            assert torch.equal(g["graphed"]["state"][k], v), k
+            assert torch.equal(got[0]["graphed"]["state"][k], v), k
+    model = tv.VSSM(**kw).to(cuda)
+    model.load_state_dict(weights)
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+    want = trainer.train_step(
+        model, opt, images.to(cuda), labels.to(cuda), augment=True,
+        generator=torch.Generator(device="cuda").manual_seed(1),
+        image_size=32).item()
+    for g in got:
+        assert abs(g["graphed"]["losses"][0].item() - want) <= 1e-2 * abs(
+            want)
+
+
+def test_distributed_train_cli_across_cards(cuda, tmp_path, monkeypatch):
+    """``cli.train --device cuda`` (graphed steps) with one NCCL rank a
+    card against one process: rank 0 alone writes the same files, and the
+    first step's loss agrees to 1e-4 relative (float32; medmamba_t at
+    32^2, 2 rows a rank, the last global row padding)."""
+    import os
+
+    import torch_port_ranks as ranks
+
+    from medmamba_tpu_torch.cli import train as train_cli
+
+    world = _cards(2)
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    rng = np.random.default_rng(0)
+    n = 2 * world - 1
+    data = tmp_path / "d"
+    data.mkdir()
+    for split in ("train", "val"):
+        np.save(data / f"{split}_images.npy",
+                rng.integers(0, 256, (n, 28, 28, 3), dtype=np.uint8))
+        np.save(data / f"{split}_labels.npy",
+                (np.arange(n) % 3).reshape(n, 1).astype(np.int64))
+
+    def argv(run):
+        return ["--train_dir", str(data), "--val_dir", str(data),
+                "--batch_size", str(2 * world), "--epochs", "1",
+                "--image_size", "32", "--augmentation", "--device", "cuda",
+                "--save_dir", str(tmp_path / run), "--log_every", "0"]
+    want = train_cli.main(argv("one"))["step_losses"]
+    got = ranks.spawn(ranks.train_cli, world, tmp_path, argv("ranks"),
+                      device="cuda", backend="nccl")
+    assert [g["writes"] for g in got] == [3] + [0] * (world - 1)
+    assert sorted(os.listdir(tmp_path / "ranks")) == sorted(
+        os.listdir(tmp_path / "one"))
+    for g in got:
+        assert len(g["step_losses"]) == len(want) == 1
+        assert abs(g["step_losses"][0].item() - want[0]) <= 1e-4 * abs(
+            want[0])
+
+
+def test_seq_parallel_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """The split scan over 2 ranks on one card (gloo; NCCL refuses two
+    ranks on one card): one K1 launch a rank, y and the final state
+    against K1 over the whole sequence to 1e-4 of their scale, and a
+    backward through the kernel path raises."""
+    import torch_port_ranks as ranks
+
+    x = {k: v.cpu() for k, v in _inputs(cuda, b=2, dpg=24, l=256).items()}
+    got = ranks.spawn(ranks.seq_scan_cuda, 2, tmp_path, x, device="cuda:0")
+    with torch.no_grad():
+        y, h = selective_scan(**{k: v.to(cuda) for k, v in x.items()},
+                              delta_softplus=True, return_last_state=True)
+    y, h = y.cpu(), h.cpu()
+    assert [g["launches"] for g in got] == [1, 1]
+    got_y = torch.cat([g["y"] for g in got], dim=-1)
+    assert (got_y - y).abs().max() <= 1e-4 * y.abs().max()
+    for g in got:
+        assert (g["h"] - h).abs().max() <= 1e-4 * h.abs().max()
+        assert "last state" in g["raised"]

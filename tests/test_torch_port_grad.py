@@ -214,3 +214,63 @@ def test_library_path_changes_with_an_included_header(tmp_path, monkeypatch):
     assert second != first
     (tmp_path / "walk.cuh").write_text('#include "inner.cuh"\n')
     assert cuda_build.library_path("k.cu") not in (first, second)
+
+
+def _plain_k1(u, delta, A, B, C, D, delta_bias, *, delta_softplus,
+              reverse_dirs, u_tile, out_dtype, valid_len, return_last_state,
+              return_states, compute):
+    """``scan_cuda.selective_scan_fwd`` computed by the plain versions."""
+    from medmamba_tpu_torch.ops import selective_scan as ts
+    with torch.no_grad():
+        y, last = ts._plain_scan(u, delta, A, B, C, D, delta_bias,
+                                 delta_softplus, True, reverse_dirs, u_tile,
+                                 out_dtype, valid_len, compute)
+        states = selective_scan_states_ref(
+            u, delta, A, B, C, delta_bias, delta_softplus, reverse_dirs,
+            u_tile, valid_len, compute) if return_states else None
+    return y, last if return_last_state else None, states
+
+
+def _kernel_function(kind, args):
+    """(y, last) of ``_KernelScan`` (K1/K2) or ``_HillisScan`` (K3/K4) on
+    CPU tensors, the kernels' plain versions in their places."""
+    from medmamba_tpu_torch.ops import selective_scan as ts
+    if kind == "ssd":
+        kw = dict(delta_softplus=True, reverse_dirs=None, u_tile=1,
+                  out_dtype=None, valid_len=None, compute="float32")
+        return ts._KernelScan.apply(*args, True, kw)
+    return ts._HillisScan.apply(*args, True, None,
+                                ts.selective_scan_hillis_ref,
+                                ts.selective_scan_hillis_bwd_ref, "float32")
+
+
+@pytest.mark.parametrize("kind", ["ssd", "hillis"])
+def test_kernel_scans_refuse_a_gradient_through_the_last_state(kind,
+                                                               monkeypatch):
+    """On the card a loss that used the last state lost its gradient there
+    without a word (the state was marked non-differentiable); the kernel
+    path now raises, as the JAX kernels cannot differentiate it. A
+    gradient through y alone is unchanged: the plain scan's, 1e-5."""
+    monkeypatch.setattr(scan_cuda, "selective_scan_fwd", _plain_k1)
+    monkeypatch.setattr(scan_cuda, "selective_scan_bwd",
+                        selective_scan_bwd_ref)
+    x = _inputs(11, g=2, dpg=4, l=L)
+    gy = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        x["delta"].shape).astype(np.float32))
+
+    def leaves():
+        return [torch.from_numpy(x[k]).requires_grad_() for k in NAMES]
+
+    args = leaves()
+    y, last = _kernel_function(kind, args)
+    with pytest.raises(RuntimeError, match="last state"):
+        ((y * gy).sum() + last.sum()).backward()
+
+    args = leaves()
+    y, last = _kernel_function(kind, args)
+    (y * gy).sum().backward()
+    want = leaves()
+    (selective_scan(*want, delta_softplus=True, impl="ref") * gy
+     ).sum().backward()
+    for name, got, ref in zip(NAMES, args, want):
+        _close(got.grad, ref.grad)

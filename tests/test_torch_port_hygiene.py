@@ -42,6 +42,11 @@ def test_importing_the_port_loads_no_jax():
             "import medmamba_tpu_torch.models.mobilenet\n"
             "import medmamba_tpu_torch.models.decoder\n"
             "import medmamba_tpu_torch.utils.convert_backbones\n"
+            "import medmamba_tpu_torch.parallel.mesh\n"
+            "import medmamba_tpu_torch.ops.seq_parallel\n"
+            "import medmamba_tpu_torch.utils.setup_pad\n"
+            "import medmamba_tpu_torch.utils.setup_fetal\n"
+            "import medmamba_tpu_torch.utils.split_data\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'medmamba_tpu'))\n"
             "bad += [m.__name__ for m in (probe_vpu, probe_mosaic) "
@@ -96,3 +101,30 @@ def test_loader_pads_the_final_batch_with_label_minus_one():
     np.testing.assert_array_equal(batches[-1][0].ravel(), [8, 9, 9, 9])
     seen = np.concatenate([b[0].ravel()[b[1] >= 0] for b in batches])
     np.testing.assert_array_equal(seen, np.arange(10))
+
+
+def test_package_data_ships_every_kernel_source_and_header():
+    """An installed copy of the port builds its kernels from the files that
+    ``pyproject.toml``'s package data lists: every source that
+    ``ops/cuda_build.py`` compiles and every header it includes must match
+    a pattern there (the headers ``csrc/*.cuh`` were missing)."""
+    import fnmatch
+    import tomllib
+
+    from medmamba_tpu_torch.ops import cuda_build, rotate, scan_cuda, \
+        scan_hillis
+    from medmamba_tpu_torch.tools import probe_mosaic, probe_vpu
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "medmamba_tpu_torch"]
+    sources = (scan_cuda.FWD_SOURCE, scan_cuda.BWD_SOURCE,
+               scan_hillis.FWD_SOURCE, scan_hillis.BWD_SOURCE, rotate.SOURCE,
+               probe_vpu.SOURCE, probe_mosaic.SOURCE)
+    needed = {f"csrc/{name}" for src in sources
+              for name in cuda_build.source_files(src)}
+    needed |= {f"csrc/{name}" for name in os.listdir(cuda_build.CSRC)}
+    assert any(n.endswith(".cuh") for n in needed)
+    missing = sorted(n for n in needed
+                     if not any(fnmatch.fnmatch(n, p) for p in patterns))
+    assert not missing, missing

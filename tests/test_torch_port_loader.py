@@ -1,5 +1,7 @@
-"""The port's ``BatchLoader`` hands every error of a dataset to the caller of
-``epoch()``, as the JAX package's does, ``BaseException``s included.
+"""The port's ``BatchLoader`` against the JAX package's: every error of a
+dataset reaches the caller of ``epoch()``, ``BaseException``s included; the
+process slices of data parallelism, ``pad_multiple`` and ``device_prefetch``
+give the JAX loader's batches, bit for bit, in its order.
 
 A dataset whose ``get_batch`` raises kills the loader's producer thread; the
 loader must put the error on its queue so that the consumer raises it
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 
 from medmamba_tpu.data.loader import BatchLoader as JaxBatchLoader
-from medmamba_tpu_torch.data.loader import BatchLoader
+from medmamba_tpu.data.loader import device_prefetch as jax_device_prefetch
+from medmamba_tpu_torch.data.loader import BatchLoader, device_prefetch
 
 TIMEOUT_S = 10.0
 
@@ -93,3 +96,111 @@ def test_native_library_is_built_at_most_once_a_process(monkeypatch,
     batches = list(BatchLoader(ds, 3, shuffle=False).epoch(0))
     assert len(batches) == 4 and len(calls) == 1
     np.testing.assert_array_equal(batches[1][0], ds.images[3:6])
+
+
+class _Indexed:
+    """``n`` 4x4 images whose pixels are their index."""
+
+    def __init__(self, n):
+        self.images = (np.arange(n)[:, None, None, None]
+                       * np.ones((n, 4, 4, 3))).astype(np.uint8)
+        self.labels = np.arange(n, dtype=np.int64)
+
+    def __len__(self):
+        return len(self.images)
+
+    def get_batch(self, idx):
+        return self.images[idx], self.labels[idx]
+
+
+def _epochs(loader, epochs=(0, 1)):
+    return [list(loader.epoch(e)) for e in epochs]
+
+
+def _same_batches(got, want):
+    assert len(got) == len(want)
+    for g_epoch, w_epoch in zip(got, want):
+        assert len(g_epoch) == len(w_epoch)
+        for (gi, gl), (wi, wl) in zip(g_epoch, w_epoch):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gl, wl)
+
+
+@pytest.mark.parametrize("n,batch", [(37, 8), (32, 8), (5, 8)])
+def test_process_slices_match_the_jax_loader(n, batch):
+    """Each of 4 processes yields the JAX loader's slice of every global
+    batch, padding rows included, and the slices make up the one-process
+    batch."""
+    ds = _Indexed(n)
+    for pi in range(4):
+        kw = dict(shuffle=True, seed=7, process_index=pi, process_count=4)
+        _same_batches(_epochs(BatchLoader(ds, batch, **kw)),
+                      _epochs(JaxBatchLoader(ds, batch, **kw)))
+    single = _epochs(BatchLoader(ds, batch, shuffle=True, seed=7))
+    slices = [_epochs(BatchLoader(ds, batch, shuffle=True, seed=7,
+                                  process_index=pi, process_count=4))
+              for pi in range(4)]
+    for e, batches in enumerate(single):
+        for i, (img, lbl) in enumerate(batches):
+            np.testing.assert_array_equal(
+                np.concatenate([s[e][i][1] for s in slices]), lbl)
+            real = lbl >= 0
+            np.testing.assert_array_equal(
+                np.concatenate([s[e][i][0] for s in slices])[real], img[real])
+
+
+@pytest.mark.parametrize("pc", [1, 2])
+def test_pad_multiple_matches_the_jax_loader(pc):
+    ds = _Indexed(21)
+    for pi in range(pc):
+        kw = dict(shuffle=True, seed=3, pad_multiple=8, process_index=pi,
+                  process_count=pc)
+        port, jax_loader = BatchLoader(ds, 10, **kw), \
+            JaxBatchLoader(ds, 10, **kw)
+        assert port.padded_batch_size == jax_loader.padded_batch_size == 16
+        _same_batches(_epochs(port), _epochs(jax_loader))
+    assert BatchLoader(ds, 4, pad_multiple=8).padded_batch_size == 4
+
+
+def test_all_padding_slice_is_masked():
+    """A process whose whole slice of the final batch is padding still
+    yields a full-shape batch, every label -1."""
+    loaders = [BatchLoader(_Indexed(9), 8, shuffle=False, process_index=pi,
+                           process_count=4) for pi in range(4)]
+    finals = [list(ld.epoch(0))[-1] for ld in loaders]
+    for pi, (img, lbl) in enumerate(finals):
+        assert img.shape[0] == 2
+        np.testing.assert_array_equal(lbl, [8, -1] if pi == 0 else [-1, -1])
+        np.testing.assert_array_equal(img[:, 0, 0, 0], [8, 8])
+
+
+def test_multi_process_loading_requires_pad_to_full():
+    with pytest.raises(ValueError, match="pad_to_full"):
+        BatchLoader(_Indexed(8), 4, pad_to_full=False, process_index=0,
+                    process_count=2)
+    with pytest.raises(ValueError, match="process_index"):
+        BatchLoader(_Indexed(8), 4, process_index=2, process_count=2)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_device_prefetch_order_and_depth_match_the_jax_one(depth):
+    """On the CPU the port's ``device_prefetch`` puts and hands over
+    batches in the JAX one's order: ``depth`` puts ahead of the consumer."""
+    def trace(prefetch):
+        events = []
+
+        def items():
+            for i in range(5):
+                events.append(("read", i))
+                yield (i,)
+
+        def put(i):
+            events.append(("put", i))
+            return (i,)
+        for (i,) in prefetch(items(), put, depth):
+            events.append(("step", i))
+        return events
+    got = trace(device_prefetch)
+    assert got == trace(jax_device_prefetch)
+    assert [e for e in got if e[0] == "step"] == [("step", i)
+                                                  for i in range(5)]

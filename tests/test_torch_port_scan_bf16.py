@@ -104,7 +104,7 @@ def _port(kernel, x, gy, rev, compute):
         grads = [a.grad for a in xs]
         states = None if rev else ts.selective_scan_hillis_ref(
             *args, delta_softplus=True, compute=compute)[1]
-        return y.detach(), last, states, grads
+        return y.detach(), last.detach(), states, grads
     u, delta, A, B, C, D, bias = args
     y, last = ts._plain_scan(*args, True, True, rev, 1, None, None, compute)
     tiles = ts.selective_scan_states_ref(u, delta, A, B, C, bias, True, rev,
