@@ -189,14 +189,30 @@ Phases, in order; any failure exits non-zero:
      medmamba_t's stage 0 (batch 64, L 3136) and a 1024^2 image's (batch
      1, L 65536): one K1 launch a rank, y and the final state against K1
      over the whole sequence and the plain scan, K1's share of the split
-     call, and the kernel path's backward raising.
+     call, and the kernel path's backward raising;
+ 26. tensor parallelism (the mesh's model axis): two gloo ranks on the
+     card as a 1x2 mesh under torchrun, medmamba_t partitioned
+     (``partition_params``) at full widths, 224^2, a global batch of 8,
+     float32 blocks under ``cudnn.deterministic``, augmentation: three
+     eager train steps and one under hillis, each against one process's
+     step from the same state (loss, gathered gradient, BatchNorm
+     statistics, parameters; see TP_*), the model ranks' replicated
+     tensors the same bits, exactly 20 K1 + 20 K2 + 1 K5 a rank a step (20
+     K3 + 20 K4 + 1 K5 under hillis), each scan launch on 4 rows; an
+     ``eval_step`` and ``predict`` against one process; the gathered
+     ``.pth`` one process's bit for bit, served by ``cli.evaluate`` in this
+     process against the ranks' probabilities; K1-K4 on a rank's 4 rows
+     at every stage shape against their plain versions (TOL_FP32, as in
+     phases 1, 2, 11 and 12); K1 on half the rows against the whole
+     batch's rows at every stage (TOL_FP32).
 On the card every CLI runs its steps as CUDA graphs (phase 23), except
 ``cli.cam_backbones``, which serves one image a process eagerly; the timing
 phases 5, 10, 16, 22 and 24 time the eager functions.
 Each phase's header says when it started. The line before the last lists
 every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
 times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers;
-K1-K3 with ``VSSMSeg``'s launches, K1, K2 and K5 with phase 25's), and
+K1-K3 with ``VSSMSeg``'s launches, K1, K2 and K5 with phase 25's, K1-K5
+with phase 26's launches and K1-K4 with its error on a rank's rows), and
 phases 21's and 24's; the last line is the JSON ``{"ok": true, "device":
 {...}}``.
 """
@@ -3568,6 +3584,479 @@ def phase_distribution(root: str) -> dict:
     return out
 
 
+# phase 26: tensor parallelism over the mesh's model axis, two gloo ranks
+# on the card as a 1x2 ("data", "model") mesh (NCCL refuses two ranks on
+# one card), started by torchrun as phase 25's are. medmamba_t at full
+# widths, 224^2, a global batch of TP_BATCH (every rank's scans take half of
+# it), float32 blocks under cudnn.deterministic, augmentation: TP_STEPS
+# eager train steps from one init, each against one process's step from the
+# same state, then one under hillis (K3/K4), an eval_step and a predict.
+# The gates, set from the prediction PERF.md §6 records for tensor
+# parallelism, written before the first card call: the model ranks and one
+# process differ only in the order of float32 sums (cuBLAS on half the
+# output features, a column-parallel layer's input gradient summed over the
+# ranks, the scan's parameter gradients summed over the halves), so the
+# loss within TOL_TP_LOSS of itself, the BatchNorm running statistics
+# within TOL_TP_STATS of the largest statistic, the gradient AdamW is given
+# (shards gathered) within TOL_TP_GRAD of one process's in L2 norm, the
+# parameters after AdamW within TOL_TP_UPDATE of one process's update in L2
+# norm (PAIR_*'s reasons), the eval logits and served probabilities within
+# TOL_TP_LOGITS of their scale; the model ranks' replicated parameters the
+# same bits (their buffers, the BatchNorm statistics, are a reading); and
+# the kernels the path launches, K1-K4, at its shapes (a rank's rows at
+# each stage) against their plain versions to TOL_FP32.
+TP_BATCH = 8
+TP_STEPS = 3
+TP_VAL = 16
+TOL_TP_LOSS = 1e-6
+TOL_TP_STATS = 1e-5
+TOL_TP_GRAD = 1e-2
+TOL_TP_UPDATE = 0.15
+TOL_TP_LOGITS = 1e-5
+
+
+@contextlib.contextmanager
+def recorded_rows():
+    """Within the block the scan kernels' wrappers record the rows (u's
+    batch) of each launch: ``{"K1": [...], "K2": [...], ...}``."""
+    from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+
+    rows = {"K1": [], "K2": [], "K3": [], "K4": []}
+    wrappers = ((scan_cuda, "selective_scan_fwd", "K1"),
+                (scan_cuda, "selective_scan_bwd", "K2"),
+                (scan_hillis, "selective_scan_hillis_fwd", "K3"),
+                (scan_hillis, "selective_scan_hillis_bwd", "K4"))
+    real = {name: getattr(m, name) for m, name, _ in wrappers}
+
+    def recording(name, key):
+        def call(u, *args, **kw):
+            rows[key].append(int(u.shape[0]))
+            return real[name](u, *args, **kw)
+        return call
+    for m, name, key in wrappers:
+        setattr(m, name, recording(name, key))
+    try:
+        yield rows
+    finally:
+        for m, name, _ in wrappers:
+            setattr(m, name, real[name])
+
+
+def tp_batches():
+    """TP_STEPS + 1 global uint8 batches (the last for the hillis step)
+    and their labels on the card, the same on every rank."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    return [(torch.randint(0, 256, (TP_BATCH, IMAGE, IMAGE, 3),
+                           generator=gen, device="cuda", dtype=torch.uint8),
+             torch.randint(0, NUM_CLASSES, (TP_BATCH,), generator=gen,
+                           device="cuda"))
+            for _ in range(TP_STEPS + 1)]
+
+
+def tp_ranks(root: str) -> None:
+    """Under torchrun, 2 ranks on card 0 over gloo as a 1x2 mesh: phase
+    26's steps, eval and predict (see TP_*); rank 0 also runs one process's
+    step from each step's state. Both ranks write the checkpoint (rank 0
+    writes the file) and ``tp_<rank>.json`` into ``root``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.parallel import mesh
+    from medmamba_tpu_torch.train import checkpoint as ckpt
+    from medmamba_tpu_torch.train import trainer
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    grid = mesh.make_mesh(n_model=2, device=torch.device("cuda", 0),
+                          backend="gloo")
+    group = mesh.model_group(grid)
+    torch.backends.cudnn.deterministic = True
+
+    def fresh(partitioned: bool):
+        model = create_model("T", NUM_CLASSES, device="cuda",
+                             generator=torch.Generator().manual_seed(SEED))
+        if partitioned:
+            mesh.partition_params(model, grid)
+        return model, trainer.make_optimizer(model.parameters(), PAIR_LR,
+                                             True)[0]
+    try:
+        model, opt = fresh(True)
+        names = [n for n, _ in model.named_parameters()]
+        sharded = {n: mesh.model_shard(p) for n, p in
+                   model.named_parameters() if mesh.model_shard(p)}
+        ref, ref_opt = fresh(False) if rank == 0 else (None, None)
+        grads = {}
+
+        def keep_grads(o, key):
+            o.register_step_pre_hook(lambda o, *_: grads.__setitem__(
+                key, [p.grad.detach().clone() for g in o.param_groups
+                      for p in g["params"]]))
+        keep_grads(opt, "ranks")
+        if ref_opt is not None:
+            keep_grads(ref_opt, "one_process")
+        stats = [k for k, _ in model.named_buffers()
+                 if k.endswith(("running_mean", "running_var"))]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+        ref_gen = torch.Generator(device="cuda")
+        rows, counts, wall = [], [], []
+
+        def whole_flat(state):
+            return torch.cat([state[n].float().reshape(-1) for n in names])
+
+        def replicated(named):
+            """The names of this rank's replicated tensors among ``named``
+            whose bits differ from the other model rank's."""
+            named = [(n, t) for n, t in named if n not in sharded]
+            both = mesh.all_gather(torch.cat([
+                t.detach().double().reshape(-1) for _, t in named]), group)
+            return [n for (n, _), a, b in zip(
+                named, *(x.split([t.numel() for _, t in named])
+                         for x in both)) if not torch.equal(a, b)]
+        batches = tp_batches()
+        for i, (images, labels) in enumerate(batches):
+            hillis = i == TP_STEPS
+            # copies: a replicated entry of a state dict is the live tensor
+            state = {k: v.clone()
+                     for k, v in mesh.full_state_dict(model).items()}
+            opt_state = copy.deepcopy(ckpt.portable_optimizer_state(opt))
+            gen_state = gen.get_state()
+            reset_counts()
+            with recorded_rows() as launched, \
+                    scan_kernel("hillis" if hillis else "ssd"):
+                t1 = time.perf_counter()
+                loss = trainer.train_step(model, opt, images, labels,
+                                          generator=gen, augment=True,
+                                          image_size=IMAGE).item()
+                wall.append(time.perf_counter() - t1)
+            counts.append(dict(read_counts(), rows=launched))
+            grad_whole = torch.cat([
+                (mesh.unshard(g, sharded[n]) if n in sharded else g)
+                .float().reshape(-1) for n, g in zip(names, grads["ranks"])])
+            after = mesh.full_state_dict(model)
+            params_apart = replicated(model.named_parameters())
+            buffers_apart = replicated(model.named_buffers())
+            row = dict(step=i + 1, hillis=hillis, loss=loss,
+                       replicated_bitwise=not params_apart,
+                       params_apart=params_apart,
+                       buffers_apart=buffers_apart)
+            if rank == 0:
+                mesh.set_active_mesh(None)
+                try:
+                    ref.load_state_dict(state)
+                    ckpt.load_optimizer_state(ref_opt, opt_state)
+                    ref_gen.set_state(gen_state)
+                    with scan_kernel("hillis" if hillis else "ssd"):
+                        want = trainer.train_step(
+                            ref, ref_opt, images, labels, generator=ref_gen,
+                            augment=True, image_size=IMAGE).item()
+                finally:
+                    mesh.set_active_mesh(grid)
+                want_s = ref.state_dict()
+                scale = max(want_s[k].abs().max().item() for k in stats)
+                g_ref = torch.cat([g.float().reshape(-1)
+                                   for g in grads["one_process"]])
+                p_before, p_want = whole_flat(state), whole_flat(want_s)
+                p_got = whole_flat(after)
+                sq = [d.square().sum().item() for d in (grad_whole - g_ref)
+                      .split([state[n].numel() for n in names])]
+                worst = max(range(len(sq)), key=sq.__getitem__)
+                row.update(
+                    loss_one_process=want,
+                    loss_rel_err=abs(loss - want) / abs(want),
+                    stats_rel_err=max((after[k] - want_s[k]).abs().max()
+                                      .item() for k in stats) / scale,
+                    grad_rel_err=((grad_whole - g_ref).norm()
+                                  / g_ref.norm()).item(),
+                    grad_worst=names[worst],
+                    grad_worst_share=sq[worst] / max(sum(sq), 1e-30),
+                    update_rel_err=((p_got - p_want).norm()
+                                    / (p_want - p_before).norm()).item(),
+                    param_max_abs_err=(p_got - p_want).abs().max().item())
+            rows.append(row)
+
+        # eval_step on the first batch, predict on the val split
+        images, labels = batches[0]
+        correct, logits = trainer.eval_step(model, images, labels,
+                                            image_size=IMAGE)
+        val = torch.from_numpy(np.load(os.path.join(
+            root, "val_images.npy"))).cuda()
+        reset_counts()
+        with recorded_rows() as launched:
+            probs = torch.cat([trainer.predict(model, val[j:j + TP_BATCH],
+                                               image_size=IMAGE)[0]
+                               for j in range(0, TP_VAL, TP_BATCH)])
+        serve_counts = dict(read_counts(), rows=launched)
+        np.save(os.path.join(root, f"tp_probs_{rank}.npy"),
+                probs.cpu().numpy())
+        out = dict(steps=rows, counts=counts, wall_s=wall,
+                   serve_counts=serve_counts, correct=int(correct))
+        final = mesh.full_state_dict(model)
+        final_opt = ckpt.portable_optimizer_state(opt)
+        pth = os.path.join(root, "tp.pth")
+        ckpt.save_checkpoint(pth, model, opt, epoch=1, best_acc=0.0,
+                             num_classes=NUM_CLASSES,
+                             class_indices={str(k): k for k in
+                                            range(NUM_CLASSES)})
+        if rank == 0:
+            mesh.set_active_mesh(None)
+            try:
+                ref.load_state_dict(final)
+                ckpt.load_optimizer_state(ref_opt, final_opt)
+                ckpt.save_checkpoint(
+                    os.path.join(root, "one_process.pth"), ref, ref_opt,
+                    epoch=1, best_acc=0.0, num_classes=NUM_CLASSES,
+                    class_indices={str(k): k for k in range(NUM_CLASSES)})
+                want_correct, want_logits = trainer.eval_step(
+                    ref, images, labels, image_size=IMAGE)
+                want_probs = torch.cat([
+                    trainer.predict(ref, val[j:j + TP_BATCH],
+                                    image_size=IMAGE)[0]
+                    for j in range(0, TP_VAL, TP_BATCH)])
+            finally:
+                mesh.set_active_mesh(grid)
+            out.update(
+                correct_one_process=int(want_correct),
+                logits_rel_err=((logits - want_logits).abs().max()
+                                / want_logits.abs().max()).item(),
+                probs_max_abs_err=(probs - want_probs).abs().max().item())
+        torch.distributed.barrier()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        mesh.destroy_mesh()
+    out["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(root, f"tp_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_rows_vs_plain(rows: int) -> dict:
+    """K1-K4 on ``rows`` rows (a model rank's share of phase 26's batch) at
+    each stage shape, float32, against their plain versions, as phases 1,
+    2, 11 and 12 hold them at batch 64: K1's y within TOL_FP32 (relative
+    and absolute) of the plain scan's in both directions, its tile-entry
+    states within TOL_FP32 of the plain states; each of K2's gradients
+    within TOL_FP32 of its scale of the plain adjoint's; K3's y, chunk
+    states and last state within TOL_FP32; each of K4's gradients within
+    TOL_FP32 of its scale. Returns ``{kernel: {"max_abs_err",
+    "max_rel_err", "failed"}}``."""
+    import torch
+
+    from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+    from medmamba_tpu_torch.ops.selective_scan import (
+        selective_scan, selective_scan_bwd_ref, selective_scan_hillis_bwd_ref,
+        selective_scan_hillis_ref, selective_scan_states_ref)
+
+    names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    out = {k: dict(max_abs_err=0.0, max_rel_err=0.0, failed=[])
+           for k in ("K1", "K2", "K3", "K4")}
+
+    def hold(key, label, got, want, relative):
+        """``relative``: max |err| over the plain value's largest entry
+        (a gradient); else rtol = atol = TOL_FP32, elementwise."""
+        abs_err = (got.float() - want.float()).abs().max().item()
+        rel = rel_err(got, want)
+        row = out[key]
+        row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+        row["max_rel_err"] = max(row["max_rel_err"], rel)
+        ok = rel <= TOL_FP32 if relative else bool(torch.isclose(
+            got, want, rtol=TOL_FP32, atol=TOL_FP32).all())
+        if not ok:
+            row["failed"].append(f"{label} {abs_err:.3e} ({rel:.3e} of its "
+                                 "scale)")
+
+    for si, (dpg, l, _) in enumerate(STAGES):
+        for rev in (False, True):
+            kw = {"reverse_dirs": (rev, rev)}
+            tag = f"stage {si} {'rev' if rev else 'fwd'}"
+            x = scan_inputs(dpg, l, torch.float32, gen, batch=rows)
+            y, _, states = scan_cuda.selective_scan_fwd(
+                **x, delta_softplus=True, return_states=True, **kw)
+            hold("K1", f"{tag} y", y, selective_scan(
+                **x, delta_softplus=True, impl="ref", **kw), False)
+            want_states = selective_scan_states_ref(
+                x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"],
+                True, kw["reverse_dirs"], 1, None)
+            hold("K1", f"{tag} states", states, want_states, False)
+            gy = torch.randn(y.shape, generator=gen, device="cuda")
+            got = scan_cuda.selective_scan_bwd(
+                *(x[k] for k in names), states, gy, delta_softplus=True, **kw)
+            want = selective_scan_bwd_ref(
+                *(x[k] for k in names), want_states, gy, delta_softplus=True,
+                **kw)
+            for name, g, w in zip(names, got, want):
+                hold("K2", f"{tag} d{name}", g, w, True)
+        x = scan_inputs(dpg, l, torch.float32, gen, batch=rows)
+        got = scan_hillis.selective_scan_hillis_fwd(**x, delta_softplus=True)
+        want = selective_scan_hillis_ref(**x, delta_softplus=True)
+        for part, g, w in zip(("y", "states", "last"), got, want):
+            hold("K3", f"stage {si} {part}", g, w, False)
+        gy = torch.randn(got[0].shape, generator=gen, device="cuda")
+        args = [x[k] for k in names]
+        got_g = scan_hillis.selective_scan_hillis_bwd(
+            *args, got[1], gy, delta_softplus=True)
+        want_g = selective_scan_hillis_bwd_ref(*args, got[1], gy,
+                                               delta_softplus=True)
+        for name, g, w in zip(names, got_g, want_g):
+            hold("K4", f"stage {si} d{name}", g, w, True)
+    torch.cuda.synchronize()
+    for key, row in out.items():
+        log(f"  {key} on {rows} rows against its plain version at the "
+            f"stage shapes: max|err| {row['max_abs_err']:.3e}, "
+            f"{row['max_rel_err']:.3e} of the scale (limit {TOL_FP32:g}"
+            f"{', relative to each gradient' if key in ('K2', 'K4') else ''})"
+            f"{'; over: ' + '; '.join(row['failed']) if row['failed'] else ''}")
+    return out
+
+
+def phase_tensor_parallel(root: str) -> dict:
+    """Phase 26 (see the docstring)."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.cli import evaluate
+    from medmamba_tpu_torch.ops import scan_cuda
+
+    t0 = time.perf_counter()
+    runner = os.path.join(root, "dist_runner.py")
+    with open(runner, "w") as f:
+        f.write(DIST_RUNNER)
+    rng = np.random.default_rng(SEED + 47)
+    np.save(os.path.join(root, "val_images.npy"),
+            rng.integers(0, 256, (TP_VAL, 28, 28, 3), dtype=np.uint8))
+    np.save(os.path.join(root, "val_labels.npy"),
+            (np.arange(TP_VAL) % NUM_CLASSES).reshape(-1, 1)
+            .astype(np.int64))
+    run([*TORCHRUN, "--nproc_per_node", "2", runner, "tp_ranks", root],
+        DIST_ENV, "the two model ranks")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(root, f"tp_{r}.json")) as f:
+            ranks.append(json.load(f))
+    half = TP_BATCH // 2
+    failed = []
+    for r, got in enumerate(ranks):
+        for step, c in zip(got["steps"], got["counts"]):
+            fwd, bwd = ("K3", "K4") if step["hillis"] else ("K1", "K2")
+            want = expected_counts(**{fwd: LAUNCHES_PER_FORWARD,
+                                      bwd: LAUNCHES_PER_FORWARD, "K5": 1})
+            got_counts = {k: v for k, v in c.items() if k != "rows"}
+            if got_counts != want or c["rows"][fwd] != [half] * \
+                    LAUNCHES_PER_FORWARD or c["rows"][bwd] != [half] * \
+                    LAUNCHES_PER_FORWARD:
+                failed.append(f"rank {r} step {step['step']} launched "
+                              f"{got_counts}, rows {c['rows']}")
+            if not step["replicated_bitwise"]:
+                failed.append(f"rank {r} step {step['step']}: the model "
+                              "ranks' replicated parameters differ: "
+                              f"{step['params_apart']}")
+        s = got["serve_counts"]
+        if {k: v for k, v in s.items() if k != "rows"} != expected_counts(
+                K1=LAUNCHES_PER_FORWARD * TP_VAL // TP_BATCH) \
+                or set(s["rows"]["K1"]) != {half}:
+            failed.append(f"rank {r} predict launched {s}")
+    lim = dict(loss=TOL_TP_LOSS, stats=TOL_TP_STATS, grad=TOL_TP_GRAD,
+               update=TOL_TP_UPDATE)
+    for row in ranks[0]["steps"]:
+        log(f"  {'hillis' if row['hillis'] else 'ssd'} step {row['step']} "
+            f"(rank 0 {ranks[0]['wall_s'][row['step'] - 1]:.2f} s): loss "
+            f"{row['loss']:.7f}, one process {row['loss_one_process']:.7f} "
+            f"({row['loss_rel_err']:.3e} of it, limit {lim['loss']:g}); "
+            f"BatchNorm statistics {row['stats_rel_err']:.3e} of their "
+            f"scale (limit {lim['stats']:g}); gradient "
+            f"{row['grad_rel_err']:.3e} in L2 (limit {lim['grad']:g}; "
+            f"{100 * row['grad_worst_share']:.1f}% of it in "
+            f"{row['grad_worst']}); parameters {row['update_rel_err']:.3e} "
+            f"of the update in L2 (limit {lim['update']:g}), at most "
+            f"{row['param_max_abs_err']:.3e} apart; the two ranks' "
+            f"replicated parameters bit for bit "
+            f"{row['replicated_bitwise']}, buffers apart "
+            f"{row['buffers_apart'] or 'none'}")
+        for k, v in lim.items():
+            if row[f"{k}_rel_err"] > v:
+                failed.append(f"step {row['step']}: {k} "
+                              f"{row[f'{k}_rel_err']:.3e} over {v:g}")
+    r0 = ranks[0]
+    log(f"  eval_step: correct {r0['correct']} (one process "
+        f"{r0['correct_one_process']}), logits {r0['logits_rel_err']:.3e} "
+        f"of their scale; predict on {TP_VAL} images: probabilities "
+        f"{r0['probs_max_abs_err']:.3e} off one process's; launches a rank "
+        f"{ {k: v for k, v in r0['serve_counts'].items() if k != 'rows'} }")
+    if r0["correct"] != r0["correct_one_process"] or max(
+            r0["logits_rel_err"], r0["probs_max_abs_err"]) > TOL_TP_LOGITS:
+        failed.append("eval_step or predict differs from one process")
+    tp_pth = os.path.join(root, "tp.pth")
+    one_pth = os.path.join(root, "one_process.pth")
+    pth_same = same_pth(tp_pth, one_pth)
+    if not pth_same:
+        failed.append("the gathered .pth differs from one process's")
+    # the gathered .pth served by cli.evaluate in this process
+    reset_counts()
+    _, cli_probs = evaluate.main([
+        "--checkpoint_path", tp_pth, "--data_dir", root, "--split", "val",
+        "--batch_size", str(TP_BATCH), "--image_size", str(IMAGE),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    cli_counts = read_counts()
+    tp_probs = np.load(os.path.join(root, "tp_probs_0.npy"))
+    cli_err = float(np.abs(cli_probs - tp_probs).max())
+    log(f"  the gathered .pth: one process's bit for bit {pth_same}; "
+        f"cli.evaluate on it: {cli_counts}, probabilities {cli_err:.3e} "
+        f"off the ranks' predict")
+    if cli_counts != expected_counts(
+            K1=LAUNCHES_PER_FORWARD * TP_VAL // TP_BATCH) \
+            or cli_err > TOL_TP_LOGITS:
+        failed.append(f"cli.evaluate on the gathered .pth: {cli_counts}, "
+                      f"{cli_err:.3e}")
+    # the path's own kernel shapes: K1-K4 on a model rank's rows at each
+    # stage shape against their plain versions
+    plain = tp_rows_vs_plain(half)
+    for key, row in plain.items():
+        if row["failed"]:
+            failed.append(f"{key} on {half} rows: {row['failed']}")
+    # each scan row's value on half the rows against the whole batch: K1
+    # at the stage shapes, the rows the model ranks take against the same
+    # rows of one launch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 49)
+    row_err, row_bitwise = [], []
+    with torch.no_grad():
+        for dpg, l, _ in STAGES:
+            x = scan_inputs(dpg, l, torch.float32, gen, batch=TP_BATCH)
+            whole = scan_cuda.selective_scan_fwd(
+                **x, delta_softplus=True)[0]
+            for r in range(2):
+                part = slice(r * half, (r + 1) * half)
+                y = scan_cuda.selective_scan_fwd(
+                    **{k: v[part].contiguous() if k in ("u", "delta", "B",
+                                                       "C") else v
+                       for k, v in x.items()}, delta_softplus=True)[0]
+                row_err.append(((y - whole[part]).abs().max()
+                                / whole[part].abs().max()).item())
+                row_bitwise.append(bool(torch.equal(y, whole[part])))
+    log(f"  K1 on the half batch against the whole batch's rows, by stage "
+        f"and half: {['%.2e' % e for e in row_err]}, bit for bit "
+        f"{row_bitwise}")
+    if max(row_err) > TOL_FP32:
+        failed.append(f"K1 on half the rows {max(row_err):.3e} off")
+    seconds = time.perf_counter() - t0
+    log(f"  phase 26: {seconds:.1f} s (the ranks {r0['seconds']:.1f} s)")
+    if failed:
+        raise SystemExit("tensor parallelism: " + "; ".join(failed))
+    return dict(steps=r0["steps"], wall_s=r0["wall_s"],
+                launches=r0["counts"], serve_launches=r0["serve_counts"],
+                logits_rel_err=r0["logits_rel_err"],
+                probs_max_abs_err=r0["probs_max_abs_err"],
+                cli_evaluate_probs_err=cli_err, pth_bitwise=pth_same,
+                k1_half_rows_rel_err=row_err, k1_half_rows_bitwise=row_bitwise,
+                rows_vs_plain=plain, seconds=seconds)
+
+
 def phase_timing(model):
     """Forward throughput (back-to-back forwards between one event pair)
     and the device time per forward by kernel family."""
@@ -3832,6 +4321,21 @@ def main() -> int:
     dist_launches["K1"]["seq_parallel_per_rank_call"] = \
         dist_out["pair"]["seq"][0][0]["counts"]["K1"]
 
+    header("phase 26: tensor parallelism (two gloo ranks on the card as a "
+           "1x2 mesh: partitioned medmamba_t, column-parallel Dense layers, "
+           "the scan's rows split over the model axis) against one process")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        tp_out = phase_tensor_parallel(root)
+    log("tensor_parallel " + json.dumps(tp_out))
+    tp_launches = {}
+    for c in tp_out["launches"]:
+        for k in ("K1", "K2", "K3", "K4", "K5"):
+            if c[k]:
+                tp_launches[k] = {"per_rank_step": c[k],
+                                  "rows_per_launch": sorted(set(
+                                      c["rows"].get(k, [TP_BATCH])))}
+    tp_launches["K1"]["per_rank_predict"] = tp_out["serve_launches"]["K1"]
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -3851,7 +4355,10 @@ def main() -> int:
         "device_ms_per_forward_batch1": k1_b1["device_ms_batch1"],
         "eval_img_s": img_s, "bf16_compute": bf16["K1"],
         "launches_vssmseg_forward": seg["launches_forward"]["K1"],
-        "launches_distributed": dist_launches["K1"]}, {
+        "launches_distributed": dist_launches["K1"],
+        "launches_tensor_parallel": tp_launches["K1"],
+        "tensor_parallel_rows_max_abs_err":
+            tp_out["rows_vs_plain"]["K1"]["max_abs_err"]}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
@@ -3867,7 +4374,10 @@ def main() -> int:
         "bf16_compute": bf16["K2"],
         "launches_vssmseg_backward": seg["launches_backward"]["K2"],
         "vssmseg_grad_rel_err": seg["grad_rel_err"],
-        "launches_distributed": dist_launches["K2"]}, {
+        "launches_distributed": dist_launches["K2"],
+        "launches_tensor_parallel": tp_launches["K2"],
+        "tensor_parallel_rows_max_abs_err":
+            tp_out["rows_vs_plain"]["K2"]["max_abs_err"]}, {
         "name": "rotate_flip", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
         "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
@@ -3880,7 +4390,8 @@ def main() -> int:
         "ms_28": rot[28]["ms"], "device_ms": rot[IMAGE]["device_ms"],
         "device_ms_28": rot[28]["device_ms"],
         "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0),
-        "launches_distributed": dist_launches["K5"]}, {
+        "launches_distributed": dist_launches["K5"],
+        "launches_tensor_parallel": tp_launches["K5"]}, {
         "name": "selective_scan_hillis_fwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_fwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:877",
@@ -3894,7 +4405,10 @@ def main() -> int:
             FAMILY["K3"], 0.0),
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K3"], 0.0),
         "eval_img_s": h_img_s, "bf16_compute": bf16["K3"],
-        "launches_vssmseg_forward": seg["launches_forward"]["K3"]}, {
+        "launches_vssmseg_forward": seg["launches_forward"]["K3"],
+        "launches_tensor_parallel": tp_launches["K3"],
+        "tensor_parallel_rows_max_abs_err":
+            tp_out["rows_vs_plain"]["K3"]["max_abs_err"]}, {
         "name": "selective_scan_hillis_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1275",
@@ -3905,7 +4419,10 @@ def main() -> int:
         "library_ms": None,
         "profiled_ms_per_train_step": h_fam.get(FAMILY["K4"], 0.0),
         "model_grad_rel_err": hillis_grad_err,
-        "bf16_compute": bf16["K4"]}, {
+        "bf16_compute": bf16["K4"],
+        "launches_tensor_parallel": tp_launches["K4"],
+        "tensor_parallel_rows_max_abs_err":
+            tp_out["rows_vs_plain"]["K4"]["max_abs_err"]}, {
         "name": "probe_vpu", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/probe_vpu.cu",
         "replaces": "tools/probe_vpu.py:21",

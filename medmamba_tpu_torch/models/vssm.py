@@ -46,7 +46,9 @@ from torch.utils.checkpoint import checkpoint
 from medmamba_tpu_torch.data.transforms import global_rand
 from medmamba_tpu_torch.ops.cross_scan import cross_merge_fr, cross_scan_fwd
 from medmamba_tpu_torch.ops.selective_scan import selective_scan
-from medmamba_tpu_torch.parallel.mesh import all_reduce_sum, data_group
+from medmamba_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to_model,
+                                              data_group, from_shards,
+                                              model_shard, shard_group)
 
 # ---------------------------------------------------------------------------
 # Initializers (the distributions of medmamba_tpu/models/vssm.py:46-94), all
@@ -96,8 +98,26 @@ def dt_bias_init(w: torch.Tensor, gen: torch.Generator, dt_min: float = 1e-3,
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``layer`` in ``dtype``. With a weight partitioned over the model
+    axis (``parallel/mesh.py: partition_params``) it is column-parallel:
+    this rank's output features, gathered, then the replicated bias."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    shard = model_shard(layer.weight)
+    if shard is None:
+        return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    group = shard_group(shard)
+    y = from_shards(F.linear(copy_to_model(x.to(dtype), group),
+                             layer.weight.to(dtype)), group, -1)
+    return y if bias is None else y + bias
+
+
+def _whole(p: torch.Tensor) -> torch.Tensor:
+    """A parameter whole: gathered over the model axis where it is
+    partitioned (its adjoint keeps this rank's slice)."""
+    shard = model_shard(p)
+    if shard is None:
+        return p
+    return from_shards(p, shard_group(shard), shard[0])
 
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -323,6 +343,13 @@ class SS2D(nn.Module):
     in the JAX package: ``ssd`` (default, K1/K2) or ``hillis`` (K3/K4).
     ``scan_tau`` is accepted for the JAX package's signature and does nothing:
     every scan here is exact.
+
+    Partitioned over a mesh's model axis (``parallel/mesh.py``), SS2D
+    gathers its ``x_proj_weight``, ``dt_projs_weight``, ``A_logs`` and
+    ``Ds`` shards before use (a few KB to a few hundred KB each), its
+    projections are column-parallel (``_linear``), and the scan takes its
+    parallelism from the batch: each model rank scans its rows
+    (``ops.selective_scan``), as in the JAX package.
     """
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 3,
@@ -378,15 +405,17 @@ class SS2D(nn.Module):
 
         # weights are laid out [pair j][direction k]: pair 0 (directions 0, 1)
         # scans forward, pair 1 (directions 2, 3) the same data in reverse
-        wp4 = self.x_proj_weight.to(dt_).reshape(2, 2, r + 2 * n, d_inner)
+        wp4 = _whole(self.x_proj_weight).to(dt_).reshape(2, 2, r + 2 * n,
+                                                         d_inner)
         x_dbl = torch.einsum("bkdl,jkcd->bjkcl", xs, wp4)
         dts4, Bs4, Cs4 = torch.split(x_dbl, [r, n, n], dim=3)
-        wdt4 = self.dt_projs_weight.to(dt_).reshape(2, 2, d_inner, r)
+        wdt4 = _whole(self.dt_projs_weight).to(dt_).reshape(2, 2, d_inner,
+                                                            r)
         dts4 = torch.einsum("bjkrl,jkdr->bjkdl", dts4, wdt4)
 
         u = xs.reshape(b, 2 * d_inner, l)
-        As = -torch.exp(self.A_logs.float()).reshape(4, d_inner, n)
-        Ds = self.Ds.float().reshape(4, d_inner)
+        As = -torch.exp(_whole(self.A_logs).float()).reshape(4, d_inner, n)
+        Ds = _whole(self.Ds).float().reshape(4, d_inner)
         bias = self.dt_projs_bias.float()
 
         def scan_pair(j: int, rev: bool) -> torch.Tensor:
@@ -523,7 +552,11 @@ class VSSM(nn.Module):
     model with ``.to(device)``. ``scan_tau`` is accepted for the JAX
     package's signature and does nothing (see ``SS2D``). ``dtype`` is the
     block dtype (float32 or bfloat16); ``use_checkpoint`` recomputes each
-    block's activations in the backward."""
+    block's activations in the backward. Its layers go through the model
+    axis's seams (``_linear``, ``SS2D``), so it can be partitioned
+    (``parallel/mesh.py: partition_params``)."""
+
+    TENSOR_PARALLEL = True
 
     def __init__(self, patch_size: int = 4, num_classes: int = 1000,
                  depths: Sequence[int] = (2, 2, 4, 2),

@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
+from medmamba_tpu_torch.parallel import mesh
 
 KERNELS = ("ssd", "hillis")
 COMPUTES = ("float32", "bfloat16")
@@ -700,11 +701,61 @@ def selective_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     valid_len: positions >= valid_len are padding: dt = 0 there (decay 1,
     inject 0), so the state passes through them unchanged in either
     direction. Requires ``delta_softplus``.
+
+    Under an active mesh whose model axis has ``nm`` > 1 ranks
+    (``parallel/mesh.py``), where ``nm`` divides this rank's batch, each
+    model rank scans its contiguous ``b / nm`` rows on whichever route the
+    call takes, and y (and the last state) come back gathered: the
+    counterpart of the JAX wrapper's batch reshard over ("data", "model")
+    (``_scan_mesh_axes``). The scan's parameters are tiny, so its
+    parallelism comes from the batch. Where ``nm`` does not divide the
+    batch, every model rank scans the whole batch (JAX's fallback to the
+    data axis).
     """
     if valid_len is not None and not delta_softplus:
         raise ValueError("valid_len requires delta_softplus semantics")
     if impl not in ("auto", "ref"):
         raise ValueError(f"unknown selective-scan impl {impl!r}")
+    args = (u, delta, A, B, C, D, delta_bias, delta_softplus,
+            return_last_state, impl, reverse_dirs, u_tile, out_dtype,
+            valid_len)
+    group = _scan_model_group(u.shape[0])
+    if group is None:
+        return _local_scan(*args)
+    return _model_sharded_scan(group, *args)
+
+
+def _scan_model_group(batch: int):
+    """The active mesh's model group where it has more than one rank and
+    they divide ``batch``, else None: the port's ``_scan_mesh_axes``."""
+    group = mesh.model_group()
+    if group is None:
+        return None
+    n = torch.distributed.get_world_size(group)
+    return group if n > 1 and batch % n == 0 else None
+
+
+def _model_sharded_scan(group, u, delta, A, B, C, D, delta_bias,
+                        delta_softplus, return_last_state, *rest):
+    """:func:`_local_scan` on this model rank's rows: u, delta, B and C
+    sliced on the batch (their adjoints gathered), the parameters
+    replicated (their gradients, each rank's rows' part, summed over the
+    group), y and the last state gathered (their adjoints sliced)."""
+    u, delta, B, C = (mesh.to_shards(x, group, 0) for x in (u, delta, B, C))
+    A, D, delta_bias = (None if x is None else mesh.copy_to_model(x, group)
+                        for x in (A, D, delta_bias))
+    out = _local_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                      return_last_state, *rest)
+    if return_last_state:
+        return tuple(mesh.from_shards(x, group, 0) for x in out)
+    return mesh.from_shards(out, group, 0)
+
+
+def _local_scan(u, delta, A, B, C, D, delta_bias, delta_softplus,
+                return_last_state, impl, reverse_dirs, u_tile, out_dtype,
+                valid_len):
+    """:func:`selective_scan` on this rank's tensors: the route by device,
+    impl, gradient and ``MEDMAMBA_SCAN_KERNEL``."""
     args = (u, delta, A, B, C, D, delta_bias, delta_softplus)
     auto = impl == "auto"
     hillis = auto and u.is_cuda and _kernel_impl() == "hillis"

@@ -7,6 +7,14 @@ training checkpoint is one ``.pth`` holding ``epoch``, ``model_state_dict``,
 also reads a bare state dict. Files are loaded with ``weights_only=True``:
 tensors and plain containers only, no arbitrary unpickling.
 
+A model partitioned over a mesh's model axis (``parallel/mesh.py:
+partition_params``) saves the file one process saves: its shards, and
+their AdamW moments, are gathered whole first, so every rank of its
+model group calls :func:`save_checkpoint` (the gathers are collectives)
+and the group's first rank of the first data row writes. A whole file
+loads into a partitioned model and optimizer, each rank keeping its
+slices.
+
 Crash safety, as the JAX package keeps it: a save writes ``path + ".tmp"``
 and replaces ``path`` with it in one rename, so a crash leaves the old file
 or the new one, never half of one; the training CLI deletes a superseded
@@ -19,6 +27,11 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from medmamba_tpu_torch.parallel.mesh import (full_state_dict, model_group,
+                                              model_shard, process_slice,
+                                              take_shard, unshard)
 
 META_KEYS = ("epoch", "best_acc", "num_classes", "class_indices")
 
@@ -46,19 +59,32 @@ def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, *, epoch: int,
                     best_acc: float, num_classes: int,
                     class_indices: Dict) -> None:
-    """Write a training checkpoint to ``path`` atomically (see above)."""
+    """Write a training checkpoint to ``path`` atomically (see above). A
+    partitioned model's shards are gathered first: every rank of its model
+    group calls this, and only the first rank of the first data row
+    writes."""
+    partitioned = any(model_shard(p) is not None for p in model.parameters())
     payload = {
         "epoch": int(epoch),
         "model_state_dict": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
+                             for k, v in full_state_dict(model).items()},
         "optimizer_state_dict": portable_optimizer_state(optimizer),
         "best_acc": float(best_acc),
         "num_classes": int(num_classes),
         "class_indices": dict(class_indices),
     }
+    if partitioned and (dist.get_rank(model_group()), process_slice()[0]) \
+            != (0, 0):
+        return
     tmp = path + ".tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
+
+
+def _params(optimizer: torch.optim.Optimizer) -> list:
+    """The optimizer's parameters in the order its state dict numbers
+    them."""
+    return [p for g in optimizer.param_groups for p in g["params"]]
 
 
 def delete_checkpoint(path: Optional[str]) -> None:
@@ -90,8 +116,16 @@ def portable_optimizer_state(optimizer: torch.optim.Optimizer) -> Dict:
     ``capturable`` false, each ``step`` a float32 tensor on the CPU. The
     training optimizer of the port (``trainer.make_optimizer``) keeps the
     rate in a tensor and, on the card, its steps there; a file from either
-    kind resumes the other (:func:`load_optimizer_state`)."""
+    kind resumes the other (:func:`load_optimizer_state`). A partitioned
+    parameter's moments are gathered whole (a collective of the model
+    group)."""
     sd = optimizer.state_dict()
+    for i, p in enumerate(_params(optimizer)):
+        shard = model_shard(p)
+        if shard is not None and i in sd["state"]:
+            sd["state"][i] = {k: unshard(v, shard) if torch.is_tensor(v)
+                              and v.shape == p.shape else v
+                              for k, v in sd["state"][i].items()}
     groups = []
     for g in sd["param_groups"]:
         g = dict(g)
@@ -116,16 +150,25 @@ def load_optimizer_state(optimizer: torch.optim.Optimizer,
     learning rate's type: where it is a tensor, that same tensor, filled in
     place with the loaded rate; else a float. The moments and steps are new tensors, so a step
     captured before the load would replay with the old ones: its state
-    guard raises (``utils/graphs.py``); load before the first call."""
+    guard raises (``utils/graphs.py``); load before the first call. A
+    partitioned parameter keeps its slice of a whole moment."""
     own = [dict(g) for g in optimizer.param_groups]
+    state = dict(state_dict["state"])
+    for i, p in enumerate(_params(optimizer)):
+        shard = model_shard(p)
+        if shard is None or i not in state:
+            continue
+        dim, _, n = shard
+        state[i] = {k: take_shard(v, shard) if torch.is_tensor(v)
+                    and v.ndim == p.ndim and v.shape[dim] == n * p.shape[dim]
+                    else v for k, v in state[i].items()}
     groups = []
     for g, mine in zip(state_dict["param_groups"], own):
         g = dict(g)
         if "capturable" in mine:
             g["capturable"] = mine["capturable"]
         groups.append(g)
-    optimizer.load_state_dict({"state": state_dict["state"],
-                               "param_groups": groups})
+    optimizer.load_state_dict({"state": state, "param_groups": groups})
     for g, mine in zip(optimizer.param_groups, own):
         for k in _LR_KEYS:
             if k not in g:

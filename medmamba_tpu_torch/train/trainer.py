@@ -30,6 +30,15 @@ normalise with per-rank statistics, which differ from this whenever ranks
 hold different numbers of valid rows, and at every step in BatchNorm.
 Without a mesh no collective runs.
 
+Tensor parallelism (the mesh's ``model`` axis, ``parallel/mesh.py``): the
+ranks of one data row step on the same rows, hold their shards of the
+partitioned parameters and compute the same loss. Every sum above stays
+on the data group, whose ranks hold the same shards, so a shard's
+summed gradient is this rank's part of the global one. A replicated
+parameter's gradient (and the loss) is then broadcast from the model
+group's first rank, so the model ranks apply the same update to the same
+bits whatever their kernels' rounding.
+
 ``train_step``, ``eval_step`` and ``predict`` (the served softmax forward)
 are the eager steps: the library API on any device, and the reference the
 graphs are held against. ``compile_train_step``, ``compile_eval_step`` and
@@ -52,7 +61,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from medmamba_tpu_torch.data.transforms import preprocess, preprocess_imagenet
-from medmamba_tpu_torch.parallel.mesh import data_group
+from medmamba_tpu_torch.parallel.mesh import (data_group, model_group,
+                                              model_shard)
 from medmamba_tpu_torch.utils import graphs
 
 
@@ -116,13 +126,22 @@ def sum_grads(params: Sequence[torch.nn.Parameter], loss: torch.Tensor,
     parameter); those gradients become views of the summed buffer, and a
     parameter without a gradient keeps none, so AdamW leaves it alone as it
     does in one process. Every rank runs the same graph, so every rank
-    flattens the same parameters. Returns the summed loss."""
+    flattens the same parameters. Where the active mesh's model group has
+    more than one rank, the loss and the replicated parameters' gradients,
+    which lead the buffer, are then broadcast from its first rank (one
+    more collective). Returns the summed loss."""
     params = [p for p in params if p.grad is not None]
-    flat = torch.cat([p.grad.reshape(-1) for p in params] + [loss.reshape(1)])
+    params.sort(key=lambda p: model_shard(p) is not None)
+    flat = torch.cat([loss.reshape(1)] + [p.grad.reshape(-1) for p in params])
     dist.all_reduce(flat, group=group)
-    for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+    model_axis = model_group()
+    if model_axis is not None and dist.get_world_size(model_axis) > 1:
+        whole = 1 + sum(p.numel() for p in params if model_shard(p) is None)
+        dist.broadcast(flat[:whole], src=dist.get_global_rank(model_axis, 0),
+                       group=model_axis)
+    for p, g in zip(params, flat[1:].split([p.numel() for p in params])):
         p.grad = g.view_as(p)
-    return flat[-1]
+    return flat[0]
 
 
 def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,

@@ -14,7 +14,10 @@ kernel path refusing a gradient through the last state, a world-1 NCCL
 group's graphed step against the eager step without a group, the
 sequence-parallel scan over two gloo ranks on the card; on a machine with
 several cards, one NCCL rank a card: the graphed steps against the eager
-ones under the group, and ``cli.train`` against one process).
+ones under the group, and ``cli.train`` against one process), and tensor
+parallelism (``-k across_cards`` on four cards: the graphed TP step of
+medmamba_t on a 2x2 and a 1x4 mesh against the eager one, its launches
+and rows, and its first loss against one process).
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -1547,3 +1550,56 @@ def test_seq_parallel_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
     for g in got:
         assert (g["h"] - h).abs().max() <= 1e-4 * h.abs().max()
         assert "last state" in g["raised"]
+
+
+@pytest.mark.parametrize("grid", ["2x2", "1x4"])
+def test_tensor_parallel_graphed_steps_across_cards(cuda, tmp_path,
+                                                    monkeypatch, grid):
+    """Four cards, one NCCL rank a card, as a ("data", "model") mesh of
+    ``grid``: medmamba_t at 224^2, partitioned, a global batch of 64,
+    float32 under ``cudnn.deterministic``, augmentation. The train step
+    captured as a CUDA graph with both groups' collectives gives the eager
+    TP step's bits over 3 steps; every rank launches 20 K1 + 20 K2 a step,
+    each on 64 / (n_data * n_model) rows; the first loss within 1e-4 of
+    one process's on the whole batch."""
+    import torch_port_ranks as ranks
+
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    if _cards(4) != 4:
+        pytest.skip("the meshes are 2x2 and 1x4: four cards")
+    n_data, n_model = (int(v) for v in grid.split("x"))
+    monkeypatch.setenv("NCCL_SOCKET_IFNAME", "lo")
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randint(0, 256, (64, 224, 224, 3), generator=gen,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 9, (64,), generator=gen)
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = create_model("T", 9, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+        want = trainer.train_step(
+            model, opt, images.to(cuda), labels.to(cuda), augment=True,
+            generator=torch.Generator(device=cuda).manual_seed(1),
+            image_size=224).item()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del model, opt
+    torch.cuda.empty_cache()
+    steps = 3
+    got = ranks.spawn(ranks.tp_graphed_steps, 4, tmp_path, images, labels,
+                      steps, 9, device="cuda", backend="nccl",
+                      n_model=n_model)
+    rows = 64 // (n_data * n_model)
+    for g in got:
+        assert torch.equal(g["graphed"]["losses"], g["eager"]["losses"])
+        for k, v in g["eager"]["state"].items():
+            assert torch.equal(g["graphed"]["state"][k], v), k
+        for run in ("eager", "graphed"):
+            c = g[run]["counts"]
+            assert c["scan_cuda.LAUNCHES"] == 20 * steps, (run, c)
+            assert c["scan_cuda.BWD_LAUNCHES"] == 20 * steps, (run, c)
+        assert g["rows"] == [rows] * (40 * steps)
+        assert abs(g["eager"]["losses"][0].item() - want) <= 1e-4 * abs(want)
