@@ -30,13 +30,14 @@ Phases, in order; any failure exits non-zero:
      without TF32 (the precision the port's entry points fix), and the
      device time per forward by kernel family from ``torch.profiler``;
   6. K1's tile-entry states and K2 against their plain versions at the four
-     stage shapes (batch 64): float32 and bfloat16 in and out, each forward
-     and reverse, the two mixed types (float32 in with a bfloat16 gy,
-     bfloat16 in with a float32 gy), and reverse at L 3200 with valid_len
-     3136; two K2 launches on the same stage-0 inputs must give the same
-     bits; K2's time per stage beside its bound and the plain version's,
-     and in the log the earlier design's times as timed at a08c9a5
-     (K2_EARLIER_MS, constants this run does not measure);
+     stage shapes (batch 64): float32 and bfloat16 in and out, each in one
+     launch of a forward and a reverse group, the two mixed types
+     (float32 in with a bfloat16 gy, bfloat16 in with a float32 gy), and
+     reverse at L 3200 with valid_len 3136; two K2 launches on the same
+     stage-0 inputs must give the same bits; K2's time per stage beside
+     its bound and the plain version's, and in the log the earlier
+     design's times as timed at a08c9a5 (K2_EARLIER_MS, constants this run
+     does not measure);
   7. K5 against its plain version at 28^2 and 224^2 (batch 64), exactly;
      its time per launch queued back to back and by the profiler's device
      time;
@@ -46,11 +47,12 @@ Phases, in order; any failure exits non-zero:
      launches (and each validation batch 20 K1); the loss is finite, the best
      and last ``.pth`` exist, and ``cli.evaluate`` serves the best one with
      20 K1 launches per batch;
-  9. gradients: one float32 training forward of medmamba_t (224^2, batch
-     8, drop path 0, TF32 off) through K1, its backward through K2 against
-     the same backward through K2's plain version, per parameter; then the
-     same model on the plain scan (K1 and K2 both replaced), read and
-     held on the loss;
+  9. gradients: one float32 training forward of medmamba_t's widths at
+     one block a stage (GRAD_DEPTHS, cut from medmamba_t's depths: every
+     stage shape still runs; 224^2, batch 8, drop path 0, TF32 off) through
+     K1, its backward through K2 against the same backward through K2's
+     plain version, per parameter; then the same model on the plain scan
+     (K1 and K2 both replaced), read and held on the loss;
  10. timing: train-step throughput at 224^2, batch 64 on a resident uint8
      batch, bfloat16 blocks with augmentation (``bench.py``'s
      configuration) and float32 with augmentation, and the device time per
@@ -91,33 +93,38 @@ Phases, in order; any failure exits non-zero:
  19. the class-folder tree: ``cli.evaluate`` on a tree of 224^2 PNGs (no
      PIL on the card's machine) with a random medmamba_t ``.pth``, 20 K1
      launches for its one batch, the probabilities against the model's on
-     the same pixels; then Grad-CAM: ``cli.test`` on the same tree,
-     4 images at the default target (20 + 20 K1 and no
+     the same pixels; then Grad-CAM, graphed: ``cli.test`` on the same
+     tree, 4 images at the default target (20 + 20 K1 and no
      K2 per image) and at two targets, the first upstream of 10 scans (20 +
      20 K1 and 10 K2 per image); each CAM against the same weights on the
-     plain scan; one image under hillis (40 K3, 10 K4) against the ssd CAM;
- 20. the demo server (``cli.demo``) in a thread: three POSTs (RGB with
-     target -1 and 3, RGBA) and ``GET /random?mode=gt``, 40 K1 and no K2
-     per request, the page's probabilities against the same model's
-     softmax on the same pixels; the latency per request;
+     plain scan; at the default target the seconds an image in turns with
+     the CLI on the eager CAM (``eager_cam``); one image under hillis (40
+     K3, 10 K4) against the ssd CAM;
+ 20. the demo server (``cli.demo``, forward and CAM graphed) in a thread:
+     three POSTs (RGB with target -1 and 3, RGBA) and ``GET
+     /random?mode=gt``, 40 K1 and no K2 per request, the page's
+     probabilities against the same model's softmax on the same pixels;
+     the latency per request; then POSTs in turns with a second server on
+     the eager CAM;
  21. serving export: ``python -m medmamba_tpu_torch.cli.export`` on phase
-     4's medmamba_t checkpoint (224^2, symbolic batch), once as exported
-     and once under MEDMAMBA_SCAN_KERNEL=hillis; each artifact loaded in a
-     fresh process (``LOAD_ARTIFACT``, which imports
+     4's medmamba_t checkpoint (224^2, symbolic batch), and under
+     MEDMAMBA_SCAN_KERNEL=hillis ``export_forward`` of medmamba_t's widths
+     at one block a stage (HILLIS_EXPORT_DEPTHS, cut from medmamba_t's
+     depths; every stage shape) in this process; both artifacts loaded in
+     one fresh process (``LOAD_ARTIFACT``, which imports
      ``medmamba_tpu_torch.utils.export`` and reads the launch counts) with
-     the variable naming the other kernel, and called at batch 64, 3 and 1
-     on uint8 frames from the seed: exactly 20 K1 and no K3 per call (20 K3
-     and no K1 for the hillis artifact), the probabilities within 1e-5 of
-     the live ``softmax(model(preprocess(x)))`` on the same kernel; the
-     artifact's batch-64 and batch-1 forward against the live one (CUDA
-     events, 10 back to back, median of 3), and again in this process in
-     turns with their device time from the profiler, and the scan kernel's
-     device time a batch-1 forward in each (its layout is chosen at each
-     launch); K1's and K3's batch-1 host time per forward through the graph
-     op against the call the live path made before it (the ctypes wrapper,
+     the variable naming the other kernel, and called, as CUDA graphs, at
+     batch 64, 3 and 1 on uint8 frames from the seed: exactly 20 K1 and no
+     K3 per call (8 K3 and no K1 for the hillis artifact), the
+     probabilities within 1e-5 of the live ``softmax(model(preprocess(x)))``
+     on the same kernel; the graphed artifact's batch-64 and batch-1 call
+     there (CUDA events, 10 back to back, median of 3), and in turns with
+     the loaded module's eager call (the live graphed forward: phase 23);
+     K1's and K3's batch-1 host time per forward through the graph op
+     against the call the live path made before it (the ctypes wrapper,
      ``_hillis_scan``); the analytic forward FLOPs an image
      (``utils/profiling.py: model_flops_report``) and the share of the
-     card's float32 peak the artifact reaches;
+     card's float32 peak the graphed artifact reaches;
  22. the bfloat16 compute mode (MEDMAMBA_SCAN_COMPUTE=bfloat16): K1-K4 in
      the mode against their plain versions in the mode at the four stage
      shapes (batch 64, float32 and bfloat16 inputs, and batch 1), each
@@ -138,7 +145,7 @@ Phases, in order; any failure exits non-zero:
      by the counters and by the profiler (one replay of each graph, in a
      fresh process: ``profile_graphs``); both timed in turns
      (eager, graphed, graphed, eager); the graphed train step (bf16 blocks
-     and float32, augmentation, 224^2, batch 64, ssd and hillis): 10 steps
+     and float32, augmentation, 224^2, batch 64, ssd and hillis): 5 steps
      from one state dict and one generator seed eagerly twice and graphed
      once, the graph bit for bit where the eager runs agree; where they do
      not (float32), the parameters whose first-step gradients differ are
@@ -149,10 +156,18 @@ Phases, in order; any failure exits non-zero:
      1 K5) by the counters and the profiler; the step timed in turns with
      the eager one, its busy share, each step's wall with a sync after
      it; each graph's capture seconds and pool bytes; the state guard's
-     cost and its raise after ``opt.load_state_dict``; the demo request
-     of phase 20 split into its graphed forward, its eager Grad-CAM and
-     the rest; ``BatchLoader.epoch``'s host time per batch on phase 8's
-     NPZ split and phase 19's PNG tree;
+     cost and its raise after ``opt.load_state_dict``; the graphed
+     Grad-CAM (``eval/gradcam.py: compile_cam``) of medmamba_t at batch 1
+     against the eager one: bit for bit where two eager runs agree (else
+     under ``cudnn.deterministic``) at the default target with the class
+     given and taken on the card, at the two upstream targets, there with
+     every block's output substituted, and under hillis; exact launches a
+     replay (20 K1; 20 K1 + 10 K2; 20 K3 + 10 K4); the default and
+     upstream CAMs timed in turns with eager; at most CAM_GRAPHS graphs;
+     the demo request of phase 20 split into its graphed forward, its
+     graphed Grad-CAM and the rest; ``BatchLoader.epoch``'s host time per
+     batch on phase 8's NPZ split and phase 19's PNG tree (the artifact's
+     graph against its eager call: phase 21);
  24. the other models at 224^2: ``cli.cam_backbones`` for ViT-B/16, Swin-T
      and MobileNetV2 (1000 classes) from random ``.pth`` files the phase
      writes (the ViT's zero head drawn from normal(0.02)) on a random PNG,
@@ -162,9 +177,11 @@ Phases, in order; any failure exits non-zero:
      within TOL_CAM of the CPU's given the card's activation at the target;
      each backbone's eager forward at batch 64 timed and profiled by kernel
      family; then ``VSSMSeg`` at its defaults (2 classes, float32): a forward
-     at batch 8 with exactly 40 K1 launches against the plain scan, the
-     backward of a per-pixel cross-entropy with exactly 40 K2 against K2's
-     plain version per parameter (phase 9's method, deterministic forward),
+     at batch 8 with exactly 40 K1 launches, the backward of a per-pixel
+     cross-entropy with exactly 40 K2, and at one block a stage
+     (SEG_PLAIN_DEPTHS, cut from its defaults; every stage shape) the
+     forward against the plain scan and the backward against K2's plain
+     version per parameter (phase 9's method, deterministic forward);
      40 K3 and no other scan kernel under hillis against the ssd output,
      the forward at batch 64 timed and profiled (40 K1 by the profiler, K1's
      share of the device time); 40 K1 a forward by the profiler at both
@@ -204,17 +221,52 @@ Phases, in order; any failure exits non-zero:
      process against the ranks' probabilities; K1-K4 on a rank's 4 rows
      at every stage shape against their plain versions (TOL_FP32, as in
      phases 1, 2, 11 and 12); K1 on half the rows against the whole
-     batch's rows at every stage (TOL_FP32).
-On the card every CLI runs its steps as CUDA graphs (phase 23), except
-``cli.cam_backbones``, which serves one image a process eagerly; the timing
-phases 5, 10, 16, 22 and 24 time the eager functions.
+     batch's rows at every stage (TOL_FP32);
+ 27. the VSSM sizes, in a fresh process (``sizes_process``): K1's layout
+     at medmamba_b's stage shapes (d_inner 128-1024 a group; 2, 2, 12 and 2
+     blocks) at batch 64 and 1; K1-K4 against their plain versions there
+     with phases 3's, 6's, 11's and 12's functions (float32 and bfloat16
+     inputs, K1/K2 in launches of a forward and a reverse group, batch 64
+     and 1; the mixed types,
+     the padding pattern and the plain versions' times stay at
+     medmamba_t's shapes), each kernel's time a stage beside its bound;
+     then medmamba_s, _b and _te: ``cli.train`` as in phase 8 with
+     ``--medmb_size`` (28/36/20 K1 + as many K2 + 1 K5 a step) and
+     ``cli.evaluate`` on its best ``.pth`` (28/36/20 K1 a batch); the
+     eager logits at batch 8 against the same weights on the plain scan
+     (TOL_FP32); medmamba_b under hillis (36 K3 and no other scan kernel,
+     against its ssd logits); the graphed float32 eval forward and the
+     graphed bf16 train step at batch 64, each timed in turns with the
+     eager one, one replay profiled (launches, busy share), capture
+     seconds and pool bytes.
+On the card every CLI runs its steps as CUDA graphs (phase 23), its
+Grad-CAM too (``cli.test``, ``cli.demo``), except ``cli.cam_backbones``,
+which serves one image a process eagerly; the timing phases 5, 10, 16, 22
+and 24 time the eager functions.
+To keep the run within its 1200 s, earlier paths run cut: phase 9
+at one block a stage (GRAD_DEPTHS; every stage shape of K1 and K2 still
+held to the plain versions in the model); phase 21's hillis artifact at
+one block a stage (HILLIS_EXPORT_DEPTHS, through ``export_forward``;
+``cli.export`` still runs on medmamba_t, and K3 still runs every stage
+shape in the artifact), both artifacts loaded in one fresh process, which
+also times each artifact's graph against its eager call; phase 6's
+float32 and bfloat16 cases and phase 27's K1/K2 cases launch one forward
+and one reverse group together (MIXED); phase 19 times ``cli.test``
+against the eager CAM at the default target only; phase 23 runs
+COMPILED_STEPS = 5 steps a run and times each train step in turns one
+call a round; phase 24 holds VSSMSeg against the
+plain scan and K2's plain adjoint at one block a stage
+(SEG_PLAIN_DEPTHS; the launch counts and the timing stay at its
+defaults); the eager timings of phases 5, 10, 16 and 22 queue fewer calls
+a round (5 forwards, 2 steps).
 Each phase's header says when it started. The line before the last lists
 every kernel of the port (K1, K2, K5, K3, K4, P1, P2) with its launches,
 times and bound (K1-K4 with a ``bf16_compute`` object: phase 22's numbers;
 K1-K3 with ``VSSMSeg``'s launches, K1, K2 and K5 with phase 25's, K1-K5
-with phase 26's launches and K1-K4 with its error on a rank's rows), and
-phases 21's and 24's; the last line is the JSON ``{"ok": true, "device":
-{...}}``.
+with phase 26's launches and K1-K4 with its error on a rank's rows; K1-K4
+with ``medmamba_b_shapes``, phase 27's errors and times, and K1-K3 and K5
+with the sizes' launches), and phases 21's, 24's and 27's; the last line
+is the JSON ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -237,6 +289,9 @@ NUM_CLASSES = 9
 N_IMAGES = 150                 # 3 batches of 64, the last one partial
 N_VAL = 70                     # 2 validation batches in the training path
 GRAD_BATCH = 8                 # the plain scan's autograd tape stays small
+# phase 9 runs medmamba_t's widths at one block a stage: every stage shape,
+# at half the plain versions' loops over L (they take most of the phase)
+GRAD_DEPTHS = (1, 1, 1, 1)
 GROUPS, N_STATE = 2, 16
 # medmamba_t at 224^2: per stage, channels per group (d_inner), sequence
 # length (H*W after the 4x4 patch embed and each merge) and SS2D blocks
@@ -244,6 +299,8 @@ STAGES = [(96, 56 * 56, 2), (192, 28 * 28, 2), (384, 14 * 14, 4),
           (768, 7 * 7, 2)]
 LAUNCHES_PER_FORWARD = sum(2 * blocks for _, _, blocks in STAGES)  # 20
 TILE = 64                      # K1's tile: one saved state per tile
+# one launch, both directions: group 0 forward, group 1 in reverse
+MIXED = (False, True)
 # H100 SXM data-sheet peaks: HBM3 bandwidth and dense float32 rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
@@ -321,34 +378,28 @@ TOL_BF16_MODE = 2e-2
 # a kernel in the mode must move its output off the float32 instantiation's
 # by at least this share of its scale (the mode moves y by 2e-3 to 1e-2)
 BF16_MOVES = 1e-3
-# phase 21's loader, run in a fresh process: argv is the artifact, the
-# frames (.npy), an output prefix and the batches; it writes each batch's
-# probabilities to <prefix>_<batch>.npy and prints "result {...}" with the
-# scan launches of each call (K1, K3) and the first and last batches' ms
-# per call (CUDA events, 10 back to back, median of 3)
+# phase 21's loader, run in a fresh process: argv is the frames (.npy),
+# the batches, then for each artifact its path, an output prefix and the
+# scan kernel to name in MEDMAMBA_SCAN_KERNEL while it runs (the other
+# one); it writes each batch's probabilities to <prefix>_<batch>.npy and
+# prints "result {...}" with, for each artifact, the scan launches of each
+# call (K1, K3), and at the first and last batches the graphed call's ms
+# (CUDA events, 10 back to back, median of 3) and its ms in turns with
+# the eager call of the loaded module (eager, graphed, graphed, eager)
 LOAD_ARTIFACT = r"""
-import json, statistics, sys
+import json, os, statistics, sys
 import numpy as np
 import torch
 from medmamba_tpu_torch.utils.export import load_exported
 from medmamba_tpu_torch.ops import scan_cuda, scan_hillis
 
-art, frames, prefix, batches = sys.argv[1:5]
+frames, batches = sys.argv[1:3]
 batches = [int(b) for b in batches.split(",")]
-with open(art, "rb") as f:
-    exp = load_exported(f.read())
 x = torch.from_numpy(np.load(frames)).cuda()
-counts = {}
-for b in batches:
-    scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
-    probs = exp.call(x[:b])
-    torch.cuda.synchronize()
-    counts[b] = [scan_cuda.LAUNCHES, scan_hillis.HILLIS_LAUNCHES]
-    np.save(f"{prefix}_{b}.npy", probs.cpu().numpy())
 
 
-def ms(xb, reps=10, rounds=3):
-    exp.call(xb)
+def ms(fn, xb, reps=10, rounds=3):
+    fn(xb)
     torch.cuda.synchronize()
     times = []
     for _ in range(rounds):
@@ -356,15 +407,36 @@ def ms(xb, reps=10, rounds=3):
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(reps):
-            exp.call(xb)
+            fn(xb)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
-print("result " + json.dumps({"counts": counts, "ms": {
-    b: ms(x[:b]) for b in (batches[0], batches[-1])}}))
+out = {}
+args = sys.argv[3:]
+for art, prefix, other in zip(args[::3], args[1::3], args[2::3]):
+    os.environ["MEDMAMBA_SCAN_KERNEL"] = other
+    with open(art, "rb") as f:
+        exp = load_exported(f.read())
+    counts = {}
+    for b in batches:
+        scan_cuda.LAUNCHES = scan_hillis.HILLIS_LAUNCHES = 0
+        probs = exp.call(x[:b])
+        torch.cuda.synchronize()
+        counts[b] = [scan_cuda.LAUNCHES, scan_hillis.HILLIS_LAUNCHES]
+        np.save(f"{prefix}_{b}.npy", probs.cpu().numpy())
+    def eager(xb):
+        with torch.no_grad():
+            return exp._module(xb)
+    ends = (batches[0], batches[-1])
+    out[art] = {"counts": counts,
+                "ms": {b: ms(exp.call, x[:b]) for b in ends},
+                "turns": {b: [ms(fn, x[:b]) for fn in (
+                    eager, exp.call, exp.call, eager)] for b in ends}}
+    exp.graphs.free()
+print("result " + json.dumps(out))
 """
 
 
@@ -459,7 +531,11 @@ def scan_costs(dpg: int, l: int):
             exps / (132 * 16 * 1.98e9) * 1e3)
 
 
-def phase_kernel_vs_plain():
+def phase_kernel_vs_plain(stage_list=STAGES):
+    """K1 against its plain version at ``stage_list``'s shapes (phase 3 at
+    medmamba_t's, phase 27 at medmamba_b's), at batch 64 and 1, timed at
+    each beside its bound; at medmamba_t's also the earlier design's times,
+    the plain version's and the SS2D padding pattern."""
     import torch
 
     from medmamba_tpu_torch.ops.selective_scan import selective_scan
@@ -471,9 +547,18 @@ def phase_kernel_vs_plain():
              ("fwd bf16->fp32", torch.bfloat16, {}),
              ("rev bf16->bf16", torch.bfloat16,
               {"reverse_dirs": (True, True), "out_dtype": torch.bfloat16})]
+    t_shapes = stage_list is STAGES
+    directions = ({}, {"reverse_dirs": (True, True)})
+    if not t_shapes:
+        # one launch a dtype runs group 0 forward and group 1 in reverse:
+        # both directions' code at half the plain version's loops
+        cases = [("fwd+rev fp32", torch.float32, {"reverse_dirs": MIXED}),
+                 ("fwd+rev bf16->bf16", torch.bfloat16,
+                  {"reverse_dirs": MIXED, "out_dtype": torch.bfloat16})]
+        directions = ({"reverse_dirs": MIXED},)
     max_err = 0.0
     stages = []
-    for si, (dpg, l, blocks) in enumerate(STAGES):
+    for si, (dpg, l, blocks) in enumerate(stage_list):
         for name, dtype, kw in cases:
             x = scan_inputs(dpg, l, dtype, gen)
             got = selective_scan(**x, delta_softplus=True, **kw)
@@ -492,26 +577,28 @@ def phase_kernel_vs_plain():
               for _ in range(max(2, math.ceil(3 * L2_BYTES / set_bytes)))]
         k_ms = back_to_back_ms(
             lambda x: selective_scan(**x, delta_softplus=True), xs, 20)
-        p_ms = back_to_back_ms(
-            lambda x: selective_scan(**x, delta_softplus=True, impl="ref"),
-            xs[:1], 1)
+        row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks,
+                   ms=k_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms)
+        if t_shapes:
+            row["plain_ms"] = back_to_back_ms(
+                lambda x: selective_scan(**x, delta_softplus=True,
+                                         impl="ref"), xs[:1], 1)
         del xs
-        stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches=2 * blocks, ms=k_ms,
-                           plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                           bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
-        log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms "
-            f"(earlier design as timed at 385f291: "
-            f"{K1_EARLIER_MS[BATCH][si]:.4f} ms), "
-            f"plain {p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms "
+        stages.append(row)
+        log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms"
+            + (f" (earlier design as timed at 385f291: "
+               f"{K1_EARLIER_MS[BATCH][si]:.4f} ms), plain "
+               f"{row['plain_ms']:.2f} ms" if t_shapes else "")
+            + f", bound {max(bytes_ms, ops_ms):.4f} ms "
             f"(bytes {bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
             f"{exp_ms:.4f}), x{2 * blocks} per forward")
 
     # batch 1, the demo's and cli.test's shape: 8-channel blocks
-    for si, (dpg, l, blocks) in enumerate(STAGES):
+    for si, (dpg, l, blocks) in enumerate(stage_list):
         xs = [scan_inputs(dpg, l, torch.float32, gen, batch=1)
               for _ in range(8)]
-        for kw in ({}, {"reverse_dirs": (True, True)}):
+        for kw in directions:
             got = selective_scan(**xs[0], delta_softplus=True, **kw)
             want = selective_scan(**xs[0], delta_softplus=True, impl="ref",
                                   **kw)
@@ -527,8 +614,11 @@ def phase_kernel_vs_plain():
         stages[si].update(ms_batch1=b1_ms, device_ms_batch1=b1_dev)
         log(f"  stage {si} D={GROUPS * dpg} L={l} batch 1: kernel "
             f"{b1_ms:.4f} ms back to back through the wrapper, device "
-            f"{b1_dev:.4f} ms (earlier design's device time as timed at "
-            f"385f291: {K1_EARLIER_MS[1][si]:.4f} ms)")
+            f"{b1_dev:.4f} ms" + (
+                f" (earlier design's device time as timed at 385f291: "
+                f"{K1_EARLIER_MS[1][si]:.4f} ms)" if t_shapes else ""))
+    if not t_shapes:
+        return stages, max_err
 
     # the SS2D padding pattern (L 3136 -> 3200, valid_len 3136) with the last
     # state, in reverse; then a forward-prefix/reverse-suffix launch on a
@@ -574,8 +664,12 @@ def k2_costs(dpg: int, l: int, tile: int = TILE):
             exps / (132 * 16 * 1.98e9) * 1e3)
 
 
-def phase_backward_vs_plain():
-    """K1's states and K2 against their plain versions; K2 timed."""
+def phase_backward_vs_plain(stage_list=STAGES):
+    """K1's states and K2 against their plain versions at ``stage_list``'s
+    shapes; K2 timed. At medmamba_t's (phase 6) every dtype instantiation
+    at batch 64, the padding pattern, the plain version's time and the
+    earlier design's; at medmamba_b's (phase 27) float32 and bfloat16 in
+    both directions at batch 64 and 1."""
     import torch
 
     from medmamba_tpu_torch.ops import scan_cuda
@@ -585,16 +679,16 @@ def phase_backward_vs_plain():
     names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
 
-    def operands(dpg, l, dtype, gy_dtype, kw):
-        x = scan_inputs(dpg, l, dtype, gen)
+    def operands(dpg, l, dtype, gy_dtype, kw, batch=BATCH):
+        x = scan_inputs(dpg, l, dtype, gen, batch)
         y, _, states = scan_cuda.selective_scan_fwd(
             **x, delta_softplus=True, return_states=True,
             out_dtype=gy_dtype, **kw)
         gy = torch.randn(y.shape, generator=gen, device="cuda").to(gy_dtype)
         return x, states, gy
 
-    def check(label, dpg, l, dtype, gy_dtype, kw):
-        x, states, gy = operands(dpg, l, dtype, gy_dtype, kw)
+    def check(label, dpg, l, dtype, gy_dtype, kw, batch=BATCH):
+        x, states, gy = operands(dpg, l, dtype, gy_dtype, kw, batch)
         want_states = selective_scan_states_ref(
             x["u"], x["delta"], x["A"], x["B"], x["C"], x["delta_bias"],
             True, kw.get("reverse_dirs"), 1, kw.get("valid_len"))
@@ -631,14 +725,21 @@ def phase_backward_vs_plain():
     f32, bf16 = torch.float32, torch.bfloat16
     # (label, input dtype, gy dtype, direction): every dtype instantiation of
     # K2; bf16 in both directions, as the bf16 training path runs it
-    cases = (("fwd fp32", f32, f32, fwd), ("rev fp32", f32, f32, rev),
-             ("fwd bf16", bf16, bf16, fwd), ("rev bf16", bf16, bf16, rev),
-             ("fwd fp32 in, bf16 gy", f32, bf16, fwd),
-             ("rev bf16 in, fp32 gy", bf16, f32, rev))
-    for si, (dpg, l, blocks) in enumerate(STAGES):
-        for name, dtype, gy_dtype, kw in cases:
+    t_shapes = stage_list is STAGES
+    # one launch a case runs group 0 forward and group 1 in reverse: both
+    # directions' code at half the plain version's loops over L
+    mixed = {"reverse_dirs": MIXED}
+    cases = [("fwd+rev fp32", f32, f32, mixed, BATCH),
+             ("fwd+rev bf16", bf16, bf16, mixed, BATCH)]
+    if t_shapes:
+        cases += [("fwd fp32 in, bf16 gy", f32, bf16, fwd, BATCH),
+                  ("rev bf16 in, fp32 gy", bf16, f32, rev, BATCH)]
+    else:
+        cases += [(f"{c[0]} batch 1", *c[1:4], 1) for c in cases]
+    for si, (dpg, l, blocks) in enumerate(stage_list):
+        for name, dtype, gy_dtype, kw, batch in cases:
             st_err, err = check(f"stage {si} D={GROUPS * dpg} L={l} {name}",
-                                dpg, l, dtype, gy_dtype, kw)
+                                dpg, l, dtype, gy_dtype, kw, batch)
             max_err = max(max_err, st_err, err)
         bytes_ms, ops_ms, exp_ms = k2_costs(dpg, l)
         set_bytes = bytes_ms * 1e-3 * PEAK_BYTES_PER_S
@@ -661,18 +762,24 @@ def phase_backward_vs_plain():
                 + ", d".join(names))
             del first, second
         k_ms = back_to_back_ms(bwd, sets, 20)
-        p_ms = back_to_back_ms(
-            lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1, rounds=1)
+        row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks,
+                   ms=k_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                   bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms)
+        if t_shapes:
+            row["plain_ms"] = back_to_back_ms(
+                lambda s: bwd(s, selective_scan_bwd_ref), sets[:1], 1,
+                rounds=1)
         del sets
-        stages.append(dict(stage=si, D=GROUPS * dpg, L=l,
-                           launches=2 * blocks, ms=k_ms,
-                           plain_ms=p_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
-                           bound_ms=max(bytes_ms, ops_ms), exp_ms=exp_ms))
-        log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms (earlier "
-            f"design as timed at a08c9a5: {K2_EARLIER_MS[si]:.4f} ms), plain "
-            f"{p_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
+        stages.append(row)
+        log(f"  stage {si} D={GROUPS * dpg} L={l}: K2 {k_ms:.4f} ms"
+            + (f" (earlier design as timed at a08c9a5: "
+               f"{K2_EARLIER_MS[si]:.4f} ms), plain {row['plain_ms']:.2f} ms"
+               if t_shapes else "")
+            + f", bound {max(bytes_ms, ops_ms):.4f} ms (bytes "
             f"{bytes_ms:.4f}, fp32 ops {ops_ms:.4f}, exp units "
             f"{exp_ms:.4f}), x{2 * blocks} per step")
+    if not t_shapes:
+        return stages, max_err
     st_err, err = check("L=3200 valid_len 3136 rev fp32", STAGES[0][0], 3200,
                         f32, f32, dict(rev, valid_len=3136))
     return stages, max(max_err, st_err, err)
@@ -751,15 +858,19 @@ def expected_counts(**launches) -> dict:
             for k in ("K1", "K2", "K3", "K4", "K5", "P1", "P2")}
 
 
-def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
-    """cli.train end to end, then cli.evaluate on its best checkpoint; the
-    launch counts of each. ``fwd``/``bwd``: the scan kernels the path must
-    launch, 20 per forward and per backward, and no other scan kernel."""
+def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2",
+                     size: str = "T"):
+    """cli.train end to end with ``--medmb_size size``, then cli.evaluate
+    on its best checkpoint; the launch counts of each. ``fwd``/``bwd``: the
+    scan kernels the path must launch, two per block per forward and per
+    backward (20 for medmamba_t), and no other scan kernel."""
     import numpy as np
     import torch
 
     from medmamba_tpu_torch.cli import evaluate, train
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS
 
+    per_fwd = 2 * sum(MODEL_CONFIGS[size].depths)
     write_train_split(root)
     steps = -(-N_IMAGES // BATCH)
     val_batches = -(-N_VAL // BATCH)
@@ -767,7 +878,7 @@ def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
     reset_counts()
     t0 = time.perf_counter()
     out = train.main(["--train_dir", root, "--val_dir", root,
-                      "--medmb_size", "T", "--image_size", str(IMAGE),
+                      "--medmb_size", size, "--image_size", str(IMAGE),
                       "--batch_size", str(BATCH), "--epochs", "1",
                       "--augmentation", "--dtype", "bfloat16",
                       "--device", "cuda", "--save_dir", save,
@@ -776,8 +887,8 @@ def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
     wall = time.perf_counter() - t0
     counts = read_counts()
     want = expected_counts(**{
-        fwd: LAUNCHES_PER_FORWARD * (steps + val_batches),
-        bwd: LAUNCHES_PER_FORWARD * steps, "K5": steps})
+        fwd: per_fwd * (steps + val_batches),
+        bwd: per_fwd * steps, "K5": steps})
     log(f"  cli.train: {steps} steps + {val_batches} validation batches in "
         f"{wall:.2f} s wall, launches {counts}, loss {out['train_loss']}, "
         f"val acc {out['best_acc']}, {out['img_s']:.1f} img/s (first epoch, "
@@ -793,14 +904,14 @@ def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
     reset_counts()
     cm, probs = evaluate.main(["--checkpoint_path", out["best_path"],
                                "--data_dir", root, "--split", "val",
+                               "--medmb_size", size,
                                "--batch_size", str(BATCH), "--image_size",
                                str(IMAGE), "--device", "cuda"])
     torch.cuda.synchronize()
     ev_counts = read_counts()
     log(f"  cli.evaluate on {os.path.basename(out['best_path'])}: launches "
         f"{ev_counts}")
-    if ev_counts != expected_counts(**{fwd: LAUNCHES_PER_FORWARD
-                                       * val_batches}):
+    if ev_counts != expected_counts(**{fwd: per_fwd * val_batches}):
         raise SystemExit(f"evaluate launches {ev_counts}")
     if probs.shape != (N_VAL, NUM_CLASSES) or not np.isfinite(probs).all():
         raise SystemExit(f"bad probabilities: shape {probs.shape}")
@@ -808,11 +919,11 @@ def phase_train_path(root: str, fwd: str = "K1", bwd: str = "K2"):
 
 
 def phase_gradients():
-    """One float32 training forward through K1 with its backward once
-    through K2 and once through K2's plain version, per parameter; then the
-    same model on the plain scan (autograd through its loop) as a reading,
-    held on the loss. Returns the worst relative gradient error of each
-    comparison."""
+    """One float32 training forward of medmamba_t's widths at GRAD_DEPTHS
+    through K1 with its backward once through K2 and once through K2's
+    plain version, per parameter; then the same model on the plain scan
+    (autograd through its loop) as a reading, held on the loss. Returns
+    the worst relative gradient error of each comparison."""
     import torch
 
     from medmamba_tpu_torch.models.registry import MODEL_CONFIGS
@@ -821,9 +932,8 @@ def phase_gradients():
     from medmamba_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
     from medmamba_tpu_torch.train.trainer import cross_entropy
 
-    cfg = MODEL_CONFIGS["T"]
-    kw = dict(num_classes=NUM_CLASSES, depths=cfg.depths, dims=cfg.dims,
-              drop_path_rate=0.0)
+    kw = dict(num_classes=NUM_CLASSES, depths=GRAD_DEPTHS,
+              dims=MODEL_CONFIGS["T"].dims, drop_path_rate=0.0)
     model = VSSM(**kw, generator=torch.Generator().manual_seed(SEED))
     ref = VSSM(**kw, scan_impl="ref")
     ref.load_state_dict(model.state_dict())
@@ -936,7 +1046,7 @@ def phase_train_timing():
             return trainer.train_step(model, opt, images, labels,
                                       generator=gen, augment=True,
                                       image_size=IMAGE)
-        ms = back_to_back_ms(step, [None], 5)
+        ms = back_to_back_ms(step, [None], 2)
         out[name] = dict(ms=ms, img_s=BATCH / ms * 1e3,
                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         log(f"  train step {name}: {ms:.3f} ms, {BATCH / ms * 1e3:.1f} img/s")
@@ -967,31 +1077,40 @@ def k4_costs(dpg: int, l: int) -> dict:
 
 
 def stage_row(si, dpg, l, blocks, k_ms, p_ms, costs) -> dict:
+    """One stage's row; ``p_ms`` None where the plain version is not
+    timed."""
     row = dict(stage=si, D=GROUPS * dpg, L=l, launches=2 * blocks, ms=k_ms,
-               plain_ms=p_ms, **costs)
+               **costs)
+    if p_ms is not None:
+        row["plain_ms"] = p_ms
     row["bound_ms"] = max(costs["bytes_ms"], costs["ops_ms"])
-    log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.2f} ms, bound {row['bound_ms']:.4f} ms (bytes "
+    log(f"  stage {si} D={GROUPS * dpg} L={l}: kernel {k_ms:.4f} ms, "
+        + ("" if p_ms is None else f"plain {p_ms:.2f} ms, ")
+        + f"bound {row['bound_ms']:.4f} ms (bytes "
         f"{costs['bytes_ms']:.4f}, fp32 ops needed {costs['ops_ms']:.4f}, "
         f"exp units {costs['exp_ms']:.4f}), x{2 * blocks}")
     return row
 
 
 def per_pass(stages: list) -> dict:
-    """Stage rows summed over the 20 launches of a forward or a step."""
+    """Stage rows summed over the launches of a forward or a step (20 for
+    medmamba_t); ``plain_ms`` where the rows time the plain version."""
     out = {k: sum(s[k] * s["launches"] for s in stages)
-           for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")}
+           for k in ("ms", "plain_ms", "bytes_ms", "ops_ms", "exp_ms")
+           if k in stages[0]}
     out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
     out["bound_by"] = ("bytes" if out["bytes_ms"] >= out["ops_ms"]
                        else "operations")
     return out
 
 
-def phase_hillis_fwd_vs_plain():
-    """K3 against its plain version at the stage shapes, float32 and
-    bfloat16 inputs, and at batch 1; two launches on the same stage-0
-    inputs give the same bits; one reverse call with valid_len through the
-    dispatcher against the plain sequential scan; K3 timed per stage."""
+def phase_hillis_fwd_vs_plain(stage_list=STAGES):
+    """K3 against its plain version at ``stage_list``'s shapes (medmamba_t's
+    in phase 11, medmamba_b's in phase 27), float32 and bfloat16 inputs, and
+    at batch 1; two launches on the same stage-0 inputs give the same bits;
+    K3 timed per stage. At medmamba_t's also one reverse call with
+    valid_len through the dispatcher against the plain sequential scan, and
+    the plain version's and the doubling design's times."""
     import torch
 
     from medmamba_tpu_torch.ops import scan_hillis
@@ -1000,11 +1119,15 @@ def phase_hillis_fwd_vs_plain():
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     kernel = scan_hillis.selective_scan_hillis_fwd
+    t_shapes = stage_list is STAGES
+    cases = [("fp32", torch.float32, BATCH),
+             ("bf16 in", torch.bfloat16, BATCH),
+             ("fp32 batch 1", torch.float32, 1)]
+    if not t_shapes:
+        cases.append(("bf16 in batch 1", torch.bfloat16, 1))
     max_err, stages = 0.0, []
-    for si, (dpg, l, blocks) in enumerate(STAGES):
-        for label, dtype, batch in (("fp32", torch.float32, BATCH),
-                                    ("bf16 in", torch.bfloat16, BATCH),
-                                    ("fp32 batch 1", torch.float32, 1)):
+    for si, (dpg, l, blocks) in enumerate(stage_list):
+        for label, dtype, batch in cases:
             x = scan_inputs(dpg, l, dtype, gen, batch)
             got = kernel(**x, delta_softplus=True)
             want = selective_scan_hillis_ref(**x, delta_softplus=True)
@@ -1038,11 +1161,14 @@ def phase_hillis_fwd_vs_plain():
                                xs, 20)
         p_ms = back_to_back_ms(
             lambda x: selective_scan_hillis_ref(**x, delta_softplus=True),
-            xs[:1], 1, rounds=1)
+            xs[:1], 1, rounds=1) if t_shapes else None
         del xs
         stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
-        log(f"  stage {si}: K3's doubling design as timed at a08c9a5: "
-            f"{K3_EARLIER_MS[si]:.4f} ms")
+        if t_shapes:
+            log(f"  stage {si}: K3's doubling design as timed at a08c9a5: "
+                f"{K3_EARLIER_MS[si]:.4f} ms")
+    if not t_shapes:
+        return stages, max_err
 
     # the SS2D padding pattern in reverse through the dispatcher: flipped
     # around K3, valid_len as delta = -1e4 at the pad, y in float32
@@ -1068,11 +1194,12 @@ def phase_hillis_fwd_vs_plain():
     return stages, max(max_err, err)
 
 
-def phase_hillis_bwd_vs_plain():
-    """K4 against its plain version at the stage shapes (float32 and
-    bfloat16 inputs, K3's states), each gradient relative to its scale; two
-    launches on the same stage-0 inputs give the same bits; K4 timed per
-    stage beside its doubling design's times."""
+def phase_hillis_bwd_vs_plain(stage_list=STAGES):
+    """K4 against its plain version at ``stage_list``'s shapes (float32 and
+    bfloat16 inputs, K3's states; at medmamba_b's in phase 27 also at batch
+    1), each gradient relative to its scale; two launches on the same
+    stage-0 inputs give the same bits; K4 timed per stage, at medmamba_t's
+    beside the plain version's and its doubling design's times."""
     import torch
 
     from medmamba_tpu_torch.ops import scan_hillis
@@ -1082,8 +1209,8 @@ def phase_hillis_bwd_vs_plain():
     names = ("u", "delta", "A", "B", "C", "D", "delta_bias")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
 
-    def operands(dpg, l, dtype):
-        x = scan_inputs(dpg, l, dtype, gen)
+    def operands(dpg, l, dtype, batch=BATCH):
+        x = scan_inputs(dpg, l, dtype, gen, batch)
         y, states, _ = scan_hillis.selective_scan_hillis_fwd(
             **x, delta_softplus=True)
         gy = torch.randn(y.shape, generator=gen, device="cuda")
@@ -1093,11 +1220,15 @@ def phase_hillis_bwd_vs_plain():
         args, states, gy = s
         return impl(*args, states, gy, delta_softplus=True)
 
+    t_shapes = stage_list is STAGES
+    cases = [("fp32", torch.float32, BATCH),
+             ("bf16 in", torch.bfloat16, BATCH)]
+    if not t_shapes:
+        cases += [(f"{c[0]} batch 1", c[1], 1) for c in cases]
     max_err, stages = 0.0, []
-    for si, (dpg, l, blocks) in enumerate(STAGES):
-        for label, dtype in (("fp32", torch.float32),
-                             ("bf16 in", torch.bfloat16)):
-            s = operands(dpg, l, dtype)
+    for si, (dpg, l, blocks) in enumerate(stage_list):
+        for label, dtype, batch in cases:
+            s = operands(dpg, l, dtype, batch)
             got = bwd(s)
             want = bwd(s, selective_scan_hillis_bwd_ref)
             torch.cuda.synchronize()
@@ -1138,11 +1269,12 @@ def phase_hillis_bwd_vs_plain():
         k_ms = back_to_back_ms(bwd, sets, 20)
         p_ms = back_to_back_ms(
             lambda s: bwd(s, selective_scan_hillis_bwd_ref), sets[:1], 1,
-            rounds=1)
+            rounds=1) if t_shapes else None
         del sets
         stages.append(stage_row(si, dpg, l, blocks, k_ms, p_ms, costs))
-        log(f"  stage {si}: K4's doubling design as timed at 6ede5d4: "
-            f"{K4_EARLIER_MS[si]:.4f} ms")
+        if t_shapes:
+            log(f"  stage {si}: K4's doubling design as timed at 6ede5d4: "
+                f"{K4_EARLIER_MS[si]:.4f} ms")
     return stages, max_err
 
 
@@ -1332,6 +1464,25 @@ def write_image_tree(root: str) -> str:
     return tree
 
 
+@contextlib.contextmanager
+def eager_cam():
+    """Within the block the CLIs' Grad-CAM (``gradcam.cam_fn``, which
+    ``cli.test`` and ``cli.demo`` look up when they start) is the eager
+    ``grad_cam`` on the card too: what they ran before the CAM's graphs,
+    timed in turns with them."""
+    import functools
+
+    from medmamba_tpu_torch.eval import gradcam
+
+    graphed = gradcam.cam_fn
+    gradcam.cam_fn = lambda model, device: functools.partial(
+        gradcam.grad_cam, model)
+    try:
+        yield
+    finally:
+        gradcam.cam_fn = graphed
+
+
 def load_image(path: str):
     """A PNG of the tree as the CLIs take it: preprocessed, on the card."""
     import torch
@@ -1382,6 +1533,7 @@ def check_cam(label: str, got, acts: list, other, x, target_class,
 
 
 CAM_IMAGES = 4
+DEMO_TURNS = 5
 UPSTREAM_TARGETS = ["layers_2.blocks_0.conv1x1", "layers_3.blocks_1.conv1x1"]
 DEFAULT_TARGET = ["layers_3.blocks_1.conv1x1"]
 # scans downstream of layers_2.blocks_0's conv branch: the SS2Ds of
@@ -1430,9 +1582,11 @@ def check_folder_eval(tree: str, pth: str, model) -> dict:
 
 
 def phase_gradcam(root: str):
-    """cli.test at the default target and at two targets, the first
-    upstream of 10 scans: exact launch counts per image, each CAM against
-    the same weights on the plain scan (check_cam) and non-degenerate; one
+    """cli.test (its CAM graphed) at the default target and at two targets,
+    the first upstream of 10 scans: exact launch counts per image, each CAM
+    against the same weights on the plain scan (check_cam) and
+    non-degenerate; at the default target its seconds an image in turns
+    with the CLI on the eager CAM (graphed, eager, eager, graphed); one
     image under hillis against the ssd CAM."""
     import torch
 
@@ -1500,9 +1654,29 @@ def phase_gradcam(root: str):
             if spread <= 0.5:
                 raise SystemExit(f"cli.test {tag}: the CAM of {r['path']} "
                                  "is degenerate")
+        turns = {"graphed": [statistics.median(
+            r["seconds"] for r in out[1:])], "eager": []}
+        kinds = ("eager", "eager", "graphed") if tag == "default" else ()
+        for kind in kinds:
+            with eager_cam() if kind == "eager" else contextlib.nullcontext():
+                again, _ = run_cli(f"{tag}_{kind}", CAM_IMAGES, targets,
+                                   "K1", "K2", n_bwd)
+            turns[kind].append(statistics.median(
+                r["seconds"] for r in again[1:]))
+            if kind == "eager":
+                diff = max(float(abs(a["cam"] - b["cam"]).max())
+                           for a, b in zip(out, again))
+                log(f"    the eager CAMs against the graphed: max|diff| "
+                    f"{diff:.2e}")
+        if turns["eager"]:
+            log(f"  cli.test {tag}, s an image after the first, in turns: "
+                f"graphed {turns['graphed']}, eager {turns['eager']}")
         results[tag] = dict(out=out, wall=wall, cam_err=worst,
-                            s_per_image=statistics.median(
-                                r["seconds"] for r in out[1:]))
+                            s_per_image=statistics.mean(turns["graphed"]),
+                            in_turns_s=turns)
+        if turns["eager"]:
+            results[tag]["s_per_image_eager"] = statistics.mean(
+                turns["eager"])
 
     with scan_kernel("hillis"):
         out, _ = run_cli("hillis", 1, UPSTREAM_TARGETS, "K3", "K4",
@@ -1520,11 +1694,13 @@ def phase_gradcam(root: str):
 
 
 def phase_demo(tree: str, pth: str):
-    """cli.demo's server in a thread: two POSTs of an RGB PNG (target -1
-    and 3), a POST of an RGBA PNG and GET /random?mode=gt; per request 20
-    K1 for the prediction and 20 for the CAM, no K2; the page's two PNGs,
-    and its probabilities against the same model's softmax on the same
-    pixels."""
+    """cli.demo's server in a thread (its forward and its CAM graphed): two
+    POSTs of an RGB PNG (target -1 and 3), a POST of an RGBA PNG and GET
+    /random?mode=gt; per request 20 K1 for the prediction and 20 for the
+    CAM, no K2; the page's two PNGs, and its probabilities against the
+    same model's softmax on the same pixels. Then DEMO_TURNS POSTs to it in
+    turns with as many to a second server on the eager CAM (graphed,
+    eager, eager, graphed)."""
     import base64
     import threading
     import urllib.request
@@ -1554,12 +1730,16 @@ def phase_demo(tree: str, pth: str):
             f"\r\n\r\n{target}\r\n--{b}--\r\n").encode()
         return body, {"Content-Type": f"multipart/form-data; boundary={b}"}
 
-    srv = demo.make_server(demo.parse_args(
-        ["--checkpoint_path", pth, "--port", "0", "--image_size",
-         str(IMAGE), "--device", "cuda", "--test_dir", tree]))
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    def serve():
+        srv = demo.make_server(demo.parse_args(
+            ["--checkpoint_path", pth, "--port", "0", "--image_size",
+             str(IMAGE), "--device", "cuda", "--test_dir", tree]))
+        thread = threading.Thread(target=srv.serve_forever, daemon=True)
+        thread.start()
+        return srv, thread, f"http://127.0.0.1:{srv.server_address[1]}"
+    srv, thread, url = serve()
+    with eager_cam():
+        srv_eager, thread_eager, url_eager = serve()
     requests = [("POST rgb target -1", rgb, -1), ("POST rgb target 3", rgb, 3),
                 ("POST rgba target -1", rgba, -1),
                 ("GET /random?mode=gt", None, None)]
@@ -1610,16 +1790,40 @@ def phase_demo(tree: str, pth: str):
                 f"softmax max|err| {err:.2e}")
             if abs(probs.sum() - 1) > 1e-4 or err > 1e-5:
                 raise SystemExit(f"demo {label}: probabilities disagree")
+        body, headers = multipart(png.encode(rgb), -1)
+        turns = {"graphed": [], "eager": []}
+        for kind in ("graphed", "eager", "eager", "graphed"):
+            for _ in range(DEMO_TURNS):
+                reset_counts()
+                t0 = time.perf_counter()
+                urllib.request.urlopen(urllib.request.Request(
+                    url if kind == "graphed" else url_eager, data=body,
+                    headers=headers), timeout=300).read()
+                torch.cuda.synchronize()
+                turns[kind].append((time.perf_counter() - t0) * 1e3)
+                if read_counts() != expected_counts(
+                        K1=2 * LAUNCHES_PER_FORWARD):
+                    raise SystemExit(f"demo ({kind} CAM) launched "
+                                     f"{read_counts()}")
     finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join()
+        for server, t in ((srv, thread), (srv_eager, thread_eager)):
+            server.shutdown()
+            server.server_close()
+            t.join()
     median_ms = statistics.median(latencies[1:]) * 1e3
     log(f"  median latency per request after the first: {median_ms:.1f} ms "
         f"(first {latencies[0] * 1e3:.1f} ms)")
+    # the eager server's first request captures nothing but builds its
+    # tapes: the turns' first request of each kind is left out
+    in_turns = {k: statistics.median(v[1:]) for k, v in turns.items()}
+    log(f"  POST rgb target -1 in turns ({DEMO_TURNS} a turn), median ms: "
+        f"graphed CAM {in_turns['graphed']:.2f}, eager CAM "
+        f"{in_turns['eager']:.2f}")
 
     return dict(latency_ms=[t * 1e3 for t in latencies],
-                median_ms=median_ms, prob_err=worst)
+                median_ms=median_ms, prob_err=worst,
+                in_turns_ms=turns, graphed_ms=in_turns["graphed"],
+                eager_ms=in_turns["eager"])
 
 
 def run(argv: list, env: dict, what: str) -> str:
@@ -1671,6 +1875,13 @@ def batch1_op_vs_direct(kernel: str) -> dict:
     return per_fwd
 
 
+# phase 21: the hillis artifact is exported through the library API, in
+# this process, from medmamba_t's widths at one block a stage (every stage
+# shape, 8 K3 a call), cut from medmamba_t's depths; both artifacts are
+# loaded in one fresh process
+HILLIS_EXPORT_DEPTHS = (1, 1, 1, 1)
+
+
 def phase_export(root: str, pth: str) -> dict:
     """Phase 21 (see the docstring): ``root`` holds phase 4's checkpoint
     ``pth``; the artifacts, frames and probabilities go there too."""
@@ -1679,8 +1890,9 @@ def phase_export(root: str, pth: str) -> dict:
 
     from medmamba_tpu_torch.data.transforms import preprocess
     from medmamba_tpu_torch.models.registry import MODEL_CONFIGS, create_model
+    from medmamba_tpu_torch.models.vssm import VSSM
     from medmamba_tpu_torch.train.checkpoint import restore_params
-    from medmamba_tpu_torch.utils.export import load_exported
+    from medmamba_tpu_torch.utils.export import export_forward
     from medmamba_tpu_torch.utils.profiling import model_flops_report
 
     log(f"  torch {torch.__version__}")
@@ -1689,42 +1901,59 @@ def phase_export(root: str, pth: str) -> dict:
     frames_path = os.path.join(root, "frames.npy")
     np.save(frames_path, frames)
     x = torch.from_numpy(frames).cuda()
-    model = create_model("T", NUM_CLASSES, device="cuda")
-    model.load_state_dict(restore_params(pth)[0], strict=True)
-    model.eval()
+    cfg = MODEL_CONFIGS["T"]
+    models = {"ssd": create_model("T", NUM_CLASSES, device="cuda"),
+              "hillis": VSSM(num_classes=NUM_CLASSES,
+                             depths=HILLIS_EXPORT_DEPTHS, dims=cfg.dims,
+                             generator=torch.Generator().manual_seed(
+                                 SEED + 21)).cuda().eval()}
+    models["ssd"].load_state_dict(restore_params(pth)[0], strict=True)
+    models["ssd"].eval()
+    launches = {"ssd": LAUNCHES_PER_FORWARD,
+                "hillis": 2 * sum(HILLIS_EXPORT_DEPTHS)}
+    arts = {scan: os.path.join(root, f"medmamba_t_{scan}.pt2")
+            for scan in models}
+    export_s = {}
+    t0 = time.perf_counter()
+    line = run([sys.executable, "-m", "medmamba_tpu_torch.cli.export",
+                "--checkpoint_path", pth, "--out", arts["ssd"],
+                "--image_size", str(IMAGE)], {"MEDMAMBA_SCAN_KERNEL": "ssd"},
+               "cli.export under ssd").strip().splitlines()[-1]
+    export_s["ssd"] = time.perf_counter() - t0
+    log(f"  cli.export under MEDMAMBA_SCAN_KERNEL=ssd: {line} "
+        f"({export_s['ssd']:.1f} s wall)")
+    if "scan kernel K1" not in line:
+        raise SystemExit("cli.export under ssd did not bake K1")
+    t0 = time.perf_counter()
+    with scan_kernel("hillis"), open(arts["hillis"], "wb") as f:
+        f.write(export_forward(models["hillis"], image_size=IMAGE))
+    export_s["hillis"] = time.perf_counter() - t0
+    log(f"  export_forward under MEDMAMBA_SCAN_KERNEL=hillis at depths "
+        f"{HILLIS_EXPORT_DEPTHS}: {os.path.getsize(arts['hillis']) / 1e6:.1f}"
+        f" MB ({export_s['hillis']:.1f} s wall)")
+    t0 = time.perf_counter()
+    res = run([sys.executable, "-c", LOAD_ARTIFACT, frames_path,
+               ",".join(map(str, EXPORT_BATCHES)),
+               arts["ssd"], os.path.join(root, "ssd"), "hillis",
+               arts["hillis"], os.path.join(root, "hillis"), "ssd"], {},
+              "loading the artifacts")
+    load_s = time.perf_counter() - t0
+    res = json.loads(next(ln for ln in res.splitlines()
+                          if ln.startswith("result "))[len("result "):])
+    log(f"  both artifacts loaded and called in a fresh process in "
+        f"{load_s:.1f} s")
 
-    def live(xb):
-        with torch.no_grad():
-            return torch.softmax(model(preprocess(xb, size=IMAGE)), -1)
-
-    macs = model_flops_report(MODEL_CONFIGS["T"].depths,
-                              MODEL_CONFIGS["T"].dims, IMAGE,
+    macs = model_flops_report(cfg.depths, cfg.dims, IMAGE,
                               num_classes=NUM_CLASSES)["total_macs"]
-    out = {"gflop_per_image": 2 * macs / 1e9}
+    out = {"gflop_per_image": 2 * macs / 1e9, "load_and_call_s": load_s}
     for scan, other in (("ssd", "hillis"), ("hillis", "ssd")):
-        kernel = "K1" if scan == "ssd" else "K3"
-        art = os.path.join(root, f"medmamba_t_{scan}.pt2")
-        t0 = time.perf_counter()
-        line = run([sys.executable, "-m", "medmamba_tpu_torch.cli.export",
-                    "--checkpoint_path", pth, "--out", art, "--image_size",
-                    str(IMAGE)], {"MEDMAMBA_SCAN_KERNEL": scan},
-                   f"cli.export under {scan}").strip().splitlines()[-1]
-        export_s = time.perf_counter() - t0
-        log(f"  cli.export under MEDMAMBA_SCAN_KERNEL={scan}: {line} "
-            f"({export_s:.1f} s wall)")
-        if f"scan kernel {kernel}" not in line:
-            raise SystemExit(f"cli.export under {scan} did not bake {kernel}")
-        t0 = time.perf_counter()
-        res = run([sys.executable, "-c", LOAD_ARTIFACT, art, frames_path,
-                   os.path.join(root, scan),
-                   ",".join(map(str, EXPORT_BATCHES))],
-                  {"MEDMAMBA_SCAN_KERNEL": other},
-                  f"loading the {scan} artifact")
-        load_s = time.perf_counter() - t0
-        res = json.loads(next(ln for ln in res.splitlines()
-                              if ln.startswith("result "))[len("result "):])
-        want_counts = ([LAUNCHES_PER_FORWARD, 0] if scan == "ssd"
-                       else [0, LAUNCHES_PER_FORWARD])
+        model, art, r = models[scan], arts[scan], res[arts[scan]]
+
+        def live(xb):
+            with torch.no_grad():
+                return torch.softmax(model(preprocess(xb, size=IMAGE)), -1)
+        want_counts = ([launches[scan], 0] if scan == "ssd"
+                       else [0, launches[scan]])
         worst = 0.0
         with scan_kernel(scan):
             for b in EXPORT_BATCHES:
@@ -1736,10 +1965,10 @@ def phase_export(root: str, pth: str) -> dict:
                                      f"probabilities of shape {got.shape}")
                 err = float(np.abs(got - want).max())
                 worst = max(worst, err)
-                counts = res["counts"][str(b)]
-                log(f"  {scan} artifact at batch {b}: K1 {counts[0]}, K3 "
-                    f"{counts[1]} launches a call (loaded with "
-                    f"MEDMAMBA_SCAN_KERNEL={other}); against the live "
+                counts = r["counts"][str(b)]
+                log(f"  {scan} artifact at batch {b}, graphed in the fresh "
+                    f"process: K1 {counts[0]}, K3 {counts[1]} launches a "
+                    f"call (MEDMAMBA_SCAN_KERNEL={other}); against the live "
                     f"forward max|err| {err:.3e} (atol {TOL_EXPORT:g})")
                 if counts != want_counts:
                     raise SystemExit(f"the {scan} artifact launched "
@@ -1748,54 +1977,34 @@ def phase_export(root: str, pth: str) -> dict:
                 if err > TOL_EXPORT:
                     raise SystemExit(f"the {scan} artifact's probabilities "
                                      f"are {err:.3e} off the live forward's")
-            live_ms = back_to_back_ms(live, [x[:BATCH]], 10)
-            live_ms1 = back_to_back_ms(live, [x[:1]], 10)
-            # the artifact beside the live forward in this process: in
-            # turns, then the profiler's device time of each at batch 64,
-            # and its scan kernel's at batch 1 (the kernel's layout is
-            # chosen at each launch: the artifact's batch-1 launches take
-            # the narrow blocks as the live ones do)
-            with open(art, "rb") as f:
-                fns = {"live": live, "artifact": load_exported(f.read()).call}
-            turns = {name: [] for name in fns}
-            for name in ("live", "artifact", "artifact", "live"):
-                turns[name].append(back_to_back_ms(fns[name], [x[:BATCH]],
-                                                   10))
-            device, scan_b1 = {}, {}
-            for name, fn in fns.items():
-                device[name] = profile_families(
-                    lambda: fn(x[:BATCH]), "forward")["kernel_ms_per_forward"]
-                scan_b1[name] = profile_families(
-                    lambda: fn(x[:1]), "forward")[
-                        "family_ms_per_forward"].get(FAMILY[kernel], 0.0)
-            del fns
-        art_ms, art_ms1 = res["ms"][str(BATCH)], res["ms"]["1"]
-        out[scan] = dict(
-            artifact_mb=os.path.getsize(art) / 1e6, export_s=export_s,
-            load_and_call_s=load_s, launches_per_call=want_counts,
-            max_abs_err=worst, artifact_ms=art_ms,
-            artifact_img_s=BATCH / art_ms * 1e3, live_ms=live_ms,
-            live_img_s=BATCH / live_ms * 1e3, artifact_ms_batch1=art_ms1,
-            live_ms_batch1=live_ms1, in_turns_ms=turns,
-            device_ms=device, scan_device_ms_batch1=scan_b1,
-            fp32_peak_share=2 * macs * BATCH / art_ms * 1e3
-            / PEAK_FP32_OPS_PER_S)
-        log(f"  {scan} batch {BATCH}: artifact {art_ms:.3f} ms, "
-            f"{out[scan]['artifact_img_s']:.1f} img/s; live {live_ms:.3f} "
-            f"ms, {out[scan]['live_img_s']:.1f} img/s; batch 1: artifact "
-            f"{art_ms1:.3f} ms, live {live_ms1:.3f} ms")
-        log(f"  {scan} batch {BATCH} in this process, in turns (live, "
-            f"artifact, artifact, live): live {turns['live']} ms, artifact "
-            f"{turns['artifact']} ms; device time a forward (profiler, "
-            f"{PROFILE_STEPS} forwards): "
-            f"live {device['live']:.3f} ms, artifact "
-            f"{device['artifact']:.3f} ms; {kernel}'s device time a batch-1 "
-            f"forward: live {scan_b1['live']:.4f} ms, artifact "
-            f"{scan_b1['artifact']:.4f} ms")
-        log(f"  {scan}: analytic forward {out['gflop_per_image']:.3f} GFLOP "
-            f"an image (model_flops_report, 2 FLOPs a MAC): at the "
-            f"artifact's rate {100 * out[scan]['fp32_peak_share']:.2f}% of "
-            f"the float32 peak ({PEAK_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+            art_ms, art_ms1 = r["ms"][str(BATCH)], r["ms"]["1"]
+            out[scan] = dict(
+                artifact_mb=os.path.getsize(art) / 1e6,
+                export_s=export_s[scan], launches_per_call=want_counts,
+                max_abs_err=worst, artifact_ms=art_ms,
+                artifact_img_s=BATCH / art_ms * 1e3,
+                artifact_ms_batch1=art_ms1)
+            log(f"  {scan} artifact graphed in the fresh process: batch "
+                f"{BATCH} {art_ms:.3f} ms ({out[scan]['artifact_img_s']:.1f} "
+                f"img/s), batch 1 {art_ms1:.3f} ms")
+            for b in (BATCH, 1):
+                t = r["turns"][str(b)]
+                out[scan][f"in_turns_ms_batch{b}"] = t
+                out[scan][f"graph_ms_batch{b}"] = (t[1] + t[2]) / 2
+                out[scan][f"eager_ms_batch{b}"] = (t[0] + t[3]) / 2
+                log(f"  {scan} artifact at batch {b} in the fresh process, "
+                    f"in turns (eager, graphed, graphed, eager): "
+                    f"{' '.join(f'{v:.3f}' for v in t)} ms")
+            if scan == "hillis":
+                continue
+            out[scan]["fp32_peak_share"] = (2 * macs * BATCH / art_ms * 1e3
+                                            / PEAK_FP32_OPS_PER_S)
+            log(f"  {scan}: analytic forward {out['gflop_per_image']:.3f} "
+                f"GFLOP an image (model_flops_report, 2 FLOPs a MAC): at the "
+                f"graphed artifact's rate "
+                f"{100 * out[scan]['fp32_peak_share']:.2f}% of the float32 "
+                f"peak ({PEAK_FP32_OPS_PER_S / 1e12:.0f} TFLOP/s)")
+    del models
     for kernel, before in (("K1", "the ctypes wrapper"),
                            ("K3", "_hillis_scan")):
         out[f"{kernel}_batch1_ms_per_forward"] = t = batch1_op_vs_direct(
@@ -2064,11 +2273,11 @@ def phase_bf16_model(root: str):
         with scan_kernel(scan), torch.inference_mode():
             for compute in ("float32", "bfloat16", "bfloat16", "float32"):
                 with scan_compute(compute):
-                    turns["eval"].append(back_to_back_ms(model, [x], 10))
+                    turns["eval"].append(back_to_back_ms(model, [x], 5))
         with scan_kernel(scan):
             for compute in ("float32", "bfloat16", "bfloat16", "float32"):
                 with scan_compute(compute):
-                    turns["train"].append(back_to_back_ms(step, [None], 5))
+                    turns["train"].append(back_to_back_ms(step, [None], 2))
         for name, t in turns.items():
             ms, ms32 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             res.update({f"{name}_ms": ms, f"{name}_img_s": BATCH / ms * 1e3,
@@ -2099,7 +2308,7 @@ def phase_bf16_model(root: str):
 # against graphed; where two eager runs themselves disagree, each step's
 # loss within this share of its scale
 KERNELS_PER_LAUNCH = {"K1": 1, "K2": 2, "K3": 1, "K4": 3, "K5": 1}
-COMPILED_STEPS = 10
+COMPILED_STEPS = 5
 TOL_COMPILED_LOSS = 1e-4
 LOADER_EPOCHS = 5
 
@@ -2132,12 +2341,10 @@ def compiled_forward(scan: str, frames, profiles: dict):
     ``scan``: the eager forward's bits, 20 launches of its scan kernel per
     replay by the counters and by the profiler (``profiles``, from
     ``profile_graphs``), timed in turns with the eager forward. Returns the
-    numbers and, for ssd, the batch-1 CAM's time (the demo request's other
-    part)."""
-    import numpy as np
+    numbers and, for ssd, the batch-1 CAM's graphs against eager
+    (``compiled_cam``; the demo request's other part)."""
     import torch
 
-    from medmamba_tpu_torch.eval.gradcam import grad_cam
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train import trainer
 
@@ -2188,16 +2395,113 @@ def compiled_forward(scan: str, frames, profiles: dict):
                 f"{res['kernel_ms']:.3f} ms")
         if scan == "ssd":
             x = forward(frames[:1], image_size=IMAGE)[1].clone()
-            pred = [int(got.argmax())]
-            times = []
-            for _ in range(4):
-                t0 = time.perf_counter()
-                grad_cam(model, x, target_class=np.array(pred))
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            out["cam_ms"] = statistics.median(times[1:])
-            log(f"  Grad-CAM at batch 1 (eager): {out['cam_ms']:.3f} ms")
+            out["cam"] = compiled_cam(model, x, int(got.argmax()))
         forward.free()
+    return out
+
+
+def cam_case(cam, model, x, label: str, kw: dict, launches: dict) -> dict:
+    """One signature of the graphed CAM ``cam`` against the eager
+    ``grad_cam``: bit for bit where two eager CAMs agree, else again with
+    a graph captured under ``cudnn.deterministic`` (the bits there); the
+    eager launches per replay."""
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.eval.gradcam import compile_cam, grad_cam
+
+    want, again = grad_cam(model, x, **kw), grad_cam(model, x, **kw)
+    got = cam(x, **kw)
+    graph = list(cam.step.graphs.values())[-1]
+    res = dict(eager_bitwise=bool(np.array_equal(want, again)),
+               graph_bitwise=bool(np.array_equal(got, want)),
+               max_abs_diff=float(np.abs(got - want).max()),
+               capture_s=graph.capture_s, pool_bytes=graph.pool_bytes)
+    if res["eager_bitwise"] and not res["graph_bitwise"]:
+        raise SystemExit(f"graphed CAM {label}: {res['max_abs_diff']:.3e} "
+                         "off the eager CAM, whose two runs agree")
+    if not res["eager_bitwise"]:
+        old = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            det = compile_cam(model)
+            want = grad_cam(model, x, **kw)
+            res["deterministic_graph_bitwise"] = bool(np.array_equal(
+                det(x, **kw), want))
+            res["deterministic_eager_bitwise"] = bool(np.array_equal(
+                grad_cam(model, x, **kw), want))
+            det.step.free()
+        finally:
+            torch.backends.cudnn.deterministic = old
+        if not (res["deterministic_graph_bitwise"]
+                and res["deterministic_eager_bitwise"]):
+            raise SystemExit(f"graphed CAM {label} under "
+                             f"cudnn.deterministic: {res}")
+    reset_counts()
+    cam(x, **kw)
+    torch.cuda.synchronize()
+    res["launches"] = read_counts()
+    if res["launches"] != expected_counts(**launches):
+        raise SystemExit(f"graphed CAM {label}: a replay counted "
+                         f"{res['launches']}, expected {launches}")
+    log(f"  Grad-CAM {label}: two eager runs bit for bit "
+        f"{res['eager_bitwise']}, graphed against eager bit for bit "
+        f"{res['graph_bitwise']} (max|diff| {res['max_abs_diff']:.2e})"
+        + ("" if res["eager_bitwise"] else
+           "; under cudnn.deterministic graphed against eager bit for bit "
+           f"{res['deterministic_graph_bitwise']}")
+        + f"; launches a replay {launches}; capture {graph.capture_s:.3f} "
+        f"s, pool {graph.pool_bytes} B")
+    return res
+
+
+def compiled_cam(model, x, pred: int) -> dict:
+    """The graphed Grad-CAM (``eval/gradcam.py: compile_cam``) of
+    medmamba_t at batch 1 against the eager ``grad_cam`` (``cam_case``):
+    at the default target with the class given (20 K1, no K2) and taken on
+    the card, at UPSTREAM_TARGETS (20 K1, 10 K2), there with every block's
+    output and the targets substituted, and at UPSTREAM_TARGETS under
+    hillis (20 K3, 10 K4); the default and upstream CAMs timed in turns
+    with the eager ones (each call ending in the host copy); the bound on
+    its graphs."""
+    from medmamba_tpu_torch.eval.gradcam import (CAM_GRAPHS, compile_cam,
+                                                 grad_cam,
+                                                 target_activations)
+
+    cam = compile_cam(model)
+    sites = cam_sites(model, UPSTREAM_TARGETS)
+    up = dict(target_class=[pred], target_paths=UPSTREAM_TARGETS)
+    cases = {
+        "default": (dict(target_class=[pred]),
+                    {"K1": LAUNCHES_PER_FORWARD}, "ssd"),
+        "default, class on the card": (dict(), {"K1": LAUNCHES_PER_FORWARD},
+                                       "ssd"),
+        "upstream": (up, {"K1": LAUNCHES_PER_FORWARD, "K2": UPSTREAM_BWD},
+                     "ssd"),
+        "upstream, substituted": (
+            dict(up, substitute=dict(zip(sites, target_activations(
+                model, x, sites)))),
+            {"K1": LAUNCHES_PER_FORWARD, "K2": UPSTREAM_BWD}, "ssd"),
+        "upstream, hillis": (up, {"K3": LAUNCHES_PER_FORWARD,
+                                  "K4": UPSTREAM_BWD}, "hillis")}
+    out = {}
+    for label, (kw, launches, scan) in cases.items():
+        with scan_kernel(scan):
+            out[label] = cam_case(cam, model, x, label, kw, launches)
+    for label in ("default", "upstream"):
+        kw = cases[label][0]
+        res = in_turns(lambda _: grad_cam(model, x, **kw),
+                       lambda _: cam(x, **kw), 10)
+        out[label].update(res)
+        log(f"  Grad-CAM {label} at batch 1, ms a CAM in turns (eager, "
+            f"graphed, graphed, eager): "
+            f"{' '.join(f'{t:.3f}' for t in res['in_turns_ms'])}; graphed "
+            f"{res['graph_ms']:.3f} against eager {res['eager_ms']:.3f}")
+    out["graphs"] = len(cam.step.graphs)
+    if cam.step.maxsize != CAM_GRAPHS or out["graphs"] > CAM_GRAPHS:
+        raise SystemExit(f"the CAM keeps {out['graphs']} graphs, bound "
+                         f"{cam.step.maxsize}")
+    cam.step.free()
     return out
 
 
@@ -2367,7 +2671,7 @@ def compiled_train(scan: str, name: str, dtype, images, labels,
         res.update(in_turns(
             lambda _: trainer.train_step(model, opt, images, labels,
                                          generator=gen, augment=True,
-                                         image_size=IMAGE), call, 2))
+                                         image_size=IMAGE), call, 1))
         res.update(img_s=BATCH / res["graph_ms"] * 1e3,
                    eager_img_s=BATCH / res["eager_ms"] * 1e3)
         prof = profiles[label]
@@ -2516,14 +2820,16 @@ def phase_compiled(root: str, demo_ms: float) -> dict:
                 scan, name, getattr(torch, dtype), images, labels, profiles,
                 guard_check=(scan, name) == ("hillis", "fp32+aug"))
     b1 = out["forward"]["ssd"][1]
-    cam = out["forward"]["ssd"]["cam_ms"]
+    cam = out["forward"]["ssd"]["cam"]["default"]
     out["demo"] = dict(request_ms=demo_ms, forward_ms=b1["graph_ms"],
-                       forward_eager_ms=b1["eager_ms"], cam_ms=cam,
-                       rest_ms=demo_ms - b1["graph_ms"] - cam)
-    log(f"  demo request (phase 20, graphed forward) {demo_ms:.1f} ms: the "
-        f"batch-1 forward {b1['graph_ms']:.3f} ms graphed (eager "
-        f"{b1['eager_ms']:.3f}), the Grad-CAM {cam:.3f} ms, the rest "
-        f"(decode, PNGs, HTTP) {out['demo']['rest_ms']:.3f} ms")
+                       forward_eager_ms=b1["eager_ms"],
+                       cam_ms=cam["graph_ms"], cam_eager_ms=cam["eager_ms"],
+                       rest_ms=demo_ms - b1["graph_ms"] - cam["graph_ms"])
+    log(f"  demo request (phase 20, graphed forward and CAM) {demo_ms:.1f} "
+        f"ms: the batch-1 forward {b1['graph_ms']:.3f} ms graphed (eager "
+        f"{b1['eager_ms']:.3f}), the Grad-CAM {cam['graph_ms']:.3f} ms "
+        f"graphed (eager {cam['eager_ms']:.3f}), the rest (decode, PNGs, "
+        f"HTTP) {out['demo']['rest_ms']:.3f} ms")
     out["loader"] = loader_ms(root)
     step = out["train"]["ssd bf16+aug"]["graph_ms"]
     log(f"  the loader beside the graphed ssd bf16 step ({step:.3f} ms): NPZ "
@@ -2730,6 +3036,10 @@ TOL_CAM = 1e-4
 SEG_CLASSES = 2
 SEG_BATCH = GRAD_BATCH         # the plain scan's autograd tape stays small
 SEG_LAUNCHES = 40              # 20 SS-Conv-SSM blocks, 2 scans each
+# phase 24 holds VSSMSeg against the plain scan and K2's plain adjoint at
+# one block a stage in the encoder and the decoder (every stage shape, at
+# half the plain versions' loops), cut from its default depths
+SEG_PLAIN_DEPTHS = (1, 1, 1, 1)
 # cli.cam_backbones' main() in a process of its own: argv is an .npz to
 # write and the CLI's arguments; it saves what main() returns and its wall
 CAM_RUNNER = r"""
@@ -2854,13 +3164,14 @@ def phase_cam_backbone(arch: str, root: str, image: str, pth: str) -> dict:
 
 def phase_seg() -> dict:
     """VSSMSeg at its defaults: a forward at batch SEG_BATCH with exactly
-    40 K1 launches (counters and profiler) against the same model on the
-    plain scan; the backward
-    of a per-pixel cross-entropy with exactly 40 K2 launches, each
-    parameter's gradient against the same backward through K2's plain
-    version (phase 9's method, deterministic forward); under hillis 40 K3
-    and no other scan kernel, against the ssd output; the forward at batch
-    64 timed and profiled, 40 K1 a forward by the profiler."""
+    40 K1 launches (counters and profiler); the backward of a per-pixel
+    cross-entropy with exactly 40 K2 launches; under hillis 40 K3 and no
+    other scan kernel, against the ssd output; the forward at batch 64
+    timed and profiled, 40 K1 a forward by the profiler. At
+    SEG_PLAIN_DEPTHS in the encoder and the decoder (cut from the
+    defaults): the forward against the same model on the plain scan, and
+    each parameter's gradient against the same backward through K2's
+    plain version (phase 9's method, deterministic forward)."""
     import torch
     import torch.nn.functional as F
 
@@ -2869,9 +3180,13 @@ def phase_seg() -> dict:
     from medmamba_tpu_torch.ops.selective_scan import selective_scan_bwd_ref
 
     model = VSSMSeg(SEG_CLASSES, generator=torch.Generator().manual_seed(SEED))
-    ref = VSSMSeg(SEG_CLASSES, scan_impl="ref")
-    ref.load_state_dict(model.state_dict())
-    model, ref = model.cuda().eval(), ref.cuda().eval()
+    cut = dict(depths=SEG_PLAIN_DEPTHS, depths_decoder=SEG_PLAIN_DEPTHS)
+    small = VSSMSeg(SEG_CLASSES, **cut,
+                    generator=torch.Generator().manual_seed(SEED))
+    ref = VSSMSeg(SEG_CLASSES, **cut, scan_impl="ref")
+    ref.load_state_dict(small.state_dict())
+    model, small = model.cuda().eval(), small.cuda().eval()
+    ref = ref.cuda().eval()
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     x = torch.randn(SEG_BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
     labels = torch.randint(0, SEG_CLASSES, (SEG_BATCH, IMAGE, IMAGE),
@@ -2902,39 +3217,40 @@ def phase_seg() -> dict:
     if k1_profiled != SEG_LAUNCHES:
         raise SystemExit(f"the profiler saw {k1_profiled} K1 a forward at "
                          f"batch {SEG_BATCH}")
-    want = forward(ref)
+    fwd_err = rel(forward(small), forward(ref))
     del ref
-    fwd_err = rel(out, want)
     with scan_kernel("hillis"):
         hillis_err = rel(forward(model, "K3"), out)
     log(f"  forward, batch {SEG_BATCH}: {SEG_LAUNCHES} K1 by the counters and "
-        f"the profiler, output "
-        f"{tuple(out.shape)}, {fwd_err:.2e} of its scale off the plain "
+        f"the profiler, output {tuple(out.shape)}; at depths "
+        f"{SEG_PLAIN_DEPTHS} {fwd_err:.2e} of its scale off the plain "
         f"scan's; under hillis {SEG_LAUNCHES} K3, {hillis_err:.2e} off the "
         f"ssd output (limits {TOL_FP32:g})")
     if out.shape != (SEG_BATCH, IMAGE, IMAGE, SEG_CLASSES) \
             or fwd_err > TOL_FP32 or hillis_err > TOL_FP32:
         raise SystemExit("VSSMSeg's forward disagrees")
 
-    def grads():
-        model.zero_grad()
-        loss = F.cross_entropy(model(x).permute(0, 3, 1, 2), labels)
+    def grads(m):
+        m.zero_grad()
+        loss = F.cross_entropy(m(x).permute(0, 3, 1, 2), labels)
         loss.backward()
         return loss.item(), {n: p.grad.clone()
-                             for n, p in model.named_parameters()}
+                             for n, p in m.named_parameters()}
     reset_counts()
-    loss_k, got = grads()
+    grads(model)
     torch.cuda.synchronize()
     bwd_counts = read_counts()
     if bwd_counts != expected_counts(K1=SEG_LAUNCHES, K2=SEG_LAUNCHES):
         raise SystemExit(f"VSSMSeg's training pass launched {bwd_counts}")
+    model.zero_grad(set_to_none=True)
+    loss_k, got = grads(small)
     kernel_bwd = scan_cuda.selective_scan_bwd
     scan_cuda.selective_scan_bwd = selective_scan_bwd_ref
     try:
-        loss_p, plain = grads()
+        loss_p, plain = grads(small)
     finally:
         scan_cuda.selective_scan_bwd = kernel_bwd
-    model.zero_grad(set_to_none=True)
+    del small
     rows = check_model_grads("VSSMSeg: K1 forward, K2", got, plain, loss_k,
                              loss_p)
     del got, plain
@@ -4057,6 +4373,186 @@ def phase_tensor_parallel(root: str) -> dict:
                 rows_vs_plain=plain, seconds=seconds)
 
 
+# phase 27: the other VSSM sizes at 224^2, in a process of its own (its
+# graphs are profiled, and after phases 1-26 this process's profiler drops
+# kernel events)
+SIZES = ("S", "B", "Te")
+SIZE_TIMING_REPS = 2
+
+
+def size_stages(size: str) -> list:
+    """A VSSM size's scan shapes at 224^2, as STAGES: per stage, channels
+    per group (the stage's width), sequence length and SS2D blocks."""
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS
+
+    cfg = MODEL_CONFIGS[size]
+    return [(dim, (IMAGE // 4 >> i) ** 2, depth)
+            for i, (dim, depth) in enumerate(zip(cfg.dims, cfg.depths))]
+
+
+def sizes_process(root: str) -> dict:
+    """Phase 27 in a fresh process, whose log it prints."""
+    out = run([sys.executable, "-c", "import json, sys, chip_smoke; "
+               "print('result ' + json.dumps(chip_smoke.phase_sizes("
+               "sys.argv[1])))", root], {}, "phase 27's process")
+    text, result = out.rsplit("\nresult ", 1)
+    for line in text.splitlines():
+        log(line)
+    return json.loads(result)
+
+
+def phase_sizes(root: str) -> dict:
+    """Phase 27 (see the docstring): K1-K4 at medmamba_b's shapes, then
+    each of SIZES through its entry points (``size_path``)."""
+    from medmamba_tpu_torch.ops import scan_cuda
+    from medmamba_tpu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")
+    b_stages = size_stages("B")
+    for batch in (BATCH, 1):
+        for si, (dpg, l, _) in enumerate(b_stages):
+            cfg = scan_cuda.selective_scan_fwd_config(batch, GROUPS, dpg)
+            log(f"  K1 at medmamba_b's stage {si} (D={GROUPS * dpg}, L={l}), "
+                f"batch {batch}: {cfg['channels_per_block']} channels a "
+                f"block, {cfg['smem_bytes']} B of dynamic shared memory, "
+                f"{cfg['registers']} registers, {cfg['blocks_per_sm']} blocks "
+                "an SM")
+    out = {"kernels": {}}
+    for k, fn in (("K1", phase_kernel_vs_plain),
+                  ("K2", phase_backward_vs_plain),
+                  ("K3", phase_hillis_fwd_vs_plain),
+                  ("K4", phase_hillis_bwd_vs_plain)):
+        t0 = time.perf_counter()
+        log(f"  {k} against its plain version at medmamba_b's shapes:")
+        rows, err = fn(b_stages)
+        out["kernels"][k] = dict(per_pass(rows), max_abs_err=err, stages=rows)
+        res = out["kernels"][k]
+        unit = "forward" if k in ("K1", "K3") else "step"
+        log(f"  {k} per medmamba_b {unit} "
+            f"({sum(r['launches'] for r in rows)} launches): "
+            f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']}); max|err| {err:.3e} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for size in SIZES:
+        t0 = time.perf_counter()
+        out[size] = size_path(root, size)
+        log(f"  (medmamba_{size.lower()}: {time.perf_counter() - t0:.1f} s)")
+    log("vssm_sizes " + json.dumps(out))
+    return out
+
+
+def size_path(root: str, size: str) -> dict:
+    """One VSSM size at 224^2: ``cli.train`` and ``cli.evaluate``
+    (``phase_train_path``) with exact launches; its eager logits at batch
+    GRAD_BATCH against the same weights on the plain scan (TOL_FP32), and
+    for B the same forward under hillis (K3 only, against the ssd logits);
+    the graphed float32 eval forward and the graphed bf16 train step
+    (augmentation) at batch 64, each timed in turns with the eager one,
+    profiled one replay (busy share, kernels), with its capture seconds
+    and pool bytes."""
+    import torch
+
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.models.registry import MODEL_CONFIGS, create_model
+    from medmamba_tpu_torch.train import trainer
+
+    per_fwd = 2 * sum(MODEL_CONFIGS[size].depths)
+    name = f"medmamba_{size.lower()}"
+    with tempfile.TemporaryDirectory(dir=root) as d:
+        counts, steps = phase_train_path(d, size=size)
+    res = dict(launches_per_forward=per_fwd, train_counts=counts,
+               train_steps=steps)
+
+    frames, images, labels = compiled_inputs()
+    model = create_model(size, NUM_CLASSES, device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    ref = create_model(size, NUM_CLASSES, device="cuda", scan_impl="ref")
+    ref.load_state_dict(model.state_dict())
+    model.eval()
+    ref.eval()
+    x = preprocess(frames[:GRAD_BATCH], size=IMAGE)
+    reset_counts()
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    if read_counts() != expected_counts(K1=per_fwd):
+        raise SystemExit(f"{name} forward launched {read_counts()}")
+    with torch.no_grad():
+        want = ref(x)
+    del ref
+    res["logits_err"] = (got - want).abs().max().item()
+    log(f"  {name} logits, K1 against the plain scan (batch {GRAD_BATCH}): "
+        f"max|err| {res['logits_err']:.3e} (rtol = atol = {TOL_FP32:g}), "
+        f"|logits| max {want.abs().max().item():.3e}, {per_fwd} K1")
+    torch.testing.assert_close(got, want, rtol=TOL_FP32, atol=TOL_FP32)
+    if size == "B":
+        with scan_kernel("hillis"), torch.no_grad():
+            reset_counts()
+            hillis = model(x)
+            torch.cuda.synchronize()
+        if read_counts() != expected_counts(K3=per_fwd):
+            raise SystemExit(f"{name} under hillis launched {read_counts()}")
+        res["hillis_logits_err"] = (hillis - got).abs().max().item()
+        log(f"  {name} under hillis: {per_fwd} K3 and no other scan kernel; "
+            f"logits against ssd max|err| {res['hillis_logits_err']:.3e}")
+        torch.testing.assert_close(hillis, got, rtol=TOL_FP32, atol=TOL_FP32)
+
+    forward = trainer.compile_forward(model)
+
+    def graphed_forward(_):
+        return forward(frames, image_size=IMAGE)
+    fwd = in_turns(lambda _: trainer.predict(model, frames), graphed_forward,
+                   SIZE_TIMING_REPS)
+    graph = list(forward.graphs.values())[0]
+    prof = profile_families(lambda: graphed_forward(None), "call", steps=1)
+    check_profiled_launches(f"{name} forward replay", prof, "call",
+                            K1=per_fwd)
+    fwd.update(img_s=BATCH / fwd["graph_ms"] * 1e3,
+               eager_img_s=BATCH / fwd["eager_ms"] * 1e3,
+               capture_s=graph.capture_s, pool_bytes=graph.pool_bytes,
+               busy_share=prof["busy_share_of_kernel_window"],
+               kernel_ms=prof["kernel_ms_per_call"])
+    forward.free()
+    del model, forward
+    model = create_model(size, NUM_CLASSES, dtype=torch.bfloat16,
+                         device="cuda",
+                         generator=torch.Generator().manual_seed(SEED))
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    step = trainer.compile_train_step(model, opt, generator=gen)
+
+    def graphed_step(_):
+        return step(images, labels, augment=True, image_size=IMAGE)
+    train = in_turns(
+        lambda _: trainer.train_step(model, opt, images, labels,
+                                     generator=gen, augment=True,
+                                     image_size=IMAGE),
+        graphed_step, SIZE_TIMING_REPS)
+    graph = list(step.graphs.values())[0]
+    prof = profile_families(lambda: graphed_step(None), "call", steps=1)
+    check_profiled_launches(f"{name} bf16 train step replay", prof, "call",
+                            K1=per_fwd, K2=per_fwd, K5=1)
+    train.update(img_s=BATCH / train["graph_ms"] * 1e3,
+                 eager_img_s=BATCH / train["eager_ms"] * 1e3,
+                 capture_s=graph.capture_s, pool_bytes=graph.pool_bytes,
+                 busy_share=prof["busy_share_of_kernel_window"],
+                 kernel_ms=prof["kernel_ms_per_call"],
+                 family_ms=prof["family_ms_per_call"])
+    step.free()
+    del model, opt, step
+    torch.cuda.empty_cache()
+    for label, r in (("float32 eval forward", fwd),
+                     ("bf16 train step", train)):
+        log(f"  {name} {label}, batch {BATCH}: graphed {r['graph_ms']:.3f} "
+            f"ms ({r['img_s']:.1f} img/s), eager {r['eager_ms']:.3f} ms "
+            f"({r['eager_img_s']:.1f} img/s); in turns "
+            f"{' '.join(f'{t:.3f}' for t in r['in_turns_ms'])}; graphed busy "
+            f"{100 * r['busy_share']:.1f}%, kernels {r['kernel_ms']:.3f} ms; "
+            f"capture {r['capture_s']:.3f} s, pool {r['pool_bytes']} B")
+    res.update(forward=fwd, train=train)
+    return res
+
+
 def phase_timing(model):
     """Forward throughput (back-to-back forwards between one event pair)
     and the device time per forward by kernel family."""
@@ -4066,7 +4562,7 @@ def phase_timing(model):
     x = torch.randn(BATCH, IMAGE, IMAGE, 3, generator=gen, device="cuda")
     model.eval()
     with torch.inference_mode():
-        fwd_ms = back_to_back_ms(model, [x], 10)
+        fwd_ms = back_to_back_ms(model, [x], 5)
         prof_line = profile_families(lambda: model(x), "forward")
     return fwd_ms, BATCH / fwd_ms * 1e3, prof_line
 
@@ -4336,6 +4832,32 @@ def main() -> int:
                                       c["rows"].get(k, [TP_BATCH])))}
     tp_launches["K1"]["per_rank_predict"] = tp_out["serve_launches"]["K1"]
 
+    header("phase 27: the VSSM sizes (K1-K4 at medmamba_b's stage shapes; "
+           "medmamba_s, _b, _te through cli.train and cli.evaluate, against "
+           "the plain scan, timed graphed), 224^2")
+    with tempfile.TemporaryDirectory(dir=cuda_build.BUILD_DIR) as root:
+        sizes = sizes_process(root)
+    b_kernels = sizes["kernels"]
+    size_launches = {
+        k: {f"medmamba_{z.lower()}": {
+            "per_forward" if k in ("K1", "K3") else "per_step":
+                sizes[z]["launches_per_forward"],
+            "cli_train": sizes[z]["train_counts"][k]} for z in SIZES}
+        for k in ("K1", "K2")}
+    size_launches["K3"] = {"medmamba_b_per_forward":
+                           sizes["B"]["launches_per_forward"]}
+    size_launches["K5"] = {f"medmamba_{z.lower()}_cli_train":
+                           sizes[z]["train_counts"]["K5"] for z in SIZES}
+
+    def at_b_shapes(k):
+        """A kernel's readings at medmamba_b's stage shapes (phase 27)."""
+        r = b_kernels[k]
+        return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    launches=sum(s["launches"] for s in r["stages"]),
+                    ms_per_stage=[s["ms"] for s in r["stages"]],
+                    bound_ms_per_stage=[s["bound_ms"] for s in r["stages"]])
+
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"nvidia-smi: {smi}")
     log(json.dumps({"kernels": [{
@@ -4358,7 +4880,9 @@ def main() -> int:
         "launches_distributed": dist_launches["K1"],
         "launches_tensor_parallel": tp_launches["K1"],
         "tensor_parallel_rows_max_abs_err":
-            tp_out["rows_vs_plain"]["K1"]["max_abs_err"]}, {
+            tp_out["rows_vs_plain"]["K1"]["max_abs_err"],
+        "medmamba_b_shapes": at_b_shapes("K1"),
+        "launches_vssm_sizes": size_launches["K1"]}, {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1139",
@@ -4377,7 +4901,9 @@ def main() -> int:
         "launches_distributed": dist_launches["K2"],
         "launches_tensor_parallel": tp_launches["K2"],
         "tensor_parallel_rows_max_abs_err":
-            tp_out["rows_vs_plain"]["K2"]["max_abs_err"]}, {
+            tp_out["rows_vs_plain"]["K2"]["max_abs_err"],
+        "medmamba_b_shapes": at_b_shapes("K2"),
+        "launches_vssm_sizes": size_launches["K2"]}, {
         "name": "rotate_flip", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/rotate_flip.cu",
         "replaces": "medmamba_tpu/ops/rotate_pallas.py:65",
@@ -4391,7 +4917,8 @@ def main() -> int:
         "device_ms_28": rot[28]["device_ms"],
         "profiled_ms_per_train_step": fam.get(FAMILY["K5"], 0.0),
         "launches_distributed": dist_launches["K5"],
-        "launches_tensor_parallel": tp_launches["K5"]}, {
+        "launches_tensor_parallel": tp_launches["K5"],
+        "launches_vssm_sizes": size_launches["K5"]}, {
         "name": "selective_scan_hillis_fwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_fwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:877",
@@ -4408,7 +4935,9 @@ def main() -> int:
         "launches_vssmseg_forward": seg["launches_forward"]["K3"],
         "launches_tensor_parallel": tp_launches["K3"],
         "tensor_parallel_rows_max_abs_err":
-            tp_out["rows_vs_plain"]["K3"]["max_abs_err"]}, {
+            tp_out["rows_vs_plain"]["K3"]["max_abs_err"],
+        "medmamba_b_shapes": at_b_shapes("K3"),
+        "launches_vssm_sizes": size_launches["K3"]}, {
         "name": "selective_scan_hillis_bwd", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/selective_scan_hillis_bwd.cu",
         "replaces": "medmamba_tpu/ops/pallas_scan.py:1275",
@@ -4422,7 +4951,8 @@ def main() -> int:
         "bf16_compute": bf16["K4"],
         "launches_tensor_parallel": tp_launches["K4"],
         "tensor_parallel_rows_max_abs_err":
-            tp_out["rows_vs_plain"]["K4"]["max_abs_err"]}, {
+            tp_out["rows_vs_plain"]["K4"]["max_abs_err"],
+        "medmamba_b_shapes": at_b_shapes("K4")}, {
         "name": "probe_vpu", "route": "cuda",
         "source": "medmamba_tpu_torch/csrc/probe_vpu.cu",
         "replaces": "tools/probe_vpu.py:21",
@@ -4445,6 +4975,8 @@ def main() -> int:
         "ctypes_floor_device_ms": p2_floor["device_ms"]}],
         "gradcam": {"s_per_image_after_first": {
             k: cams[k]["s_per_image"] for k in ("default", "upstream")},
+            "s_per_image_after_first_eager": {
+                "default": cams["default"]["s_per_image_eager"]},
             "cam_err_vs_plain_scan": max(cams["default"]["cam_err"],
                                          cams["upstream"]["cam_err"]),
             "hillis_cam_err": cams["hillis_err"],
@@ -4465,7 +4997,13 @@ def main() -> int:
         "bf16_compute": {scan: {k: v[k] for k in (
             "eval_ms", "eval_img_s", "eval_ms_fp32", "eval_img_s_fp32",
             "train_ms", "train_img_s", "train_ms_fp32", "train_img_s_fp32",
-            "logits_rel_err", "loss")} for scan, v in bf16_model.items()}}))
+            "logits_rel_err", "loss")} for scan, v in bf16_model.items()},
+        "vssm_sizes": {f"medmamba_{z.lower()}": {
+            k: sizes[z][k] for k in ("launches_per_forward", "logits_err")}
+            | {f"{k}_{m}": sizes[z][k][m] for k in ("forward", "train")
+               for m in ("graph_ms", "eager_ms", "img_s", "busy_share",
+                         "pool_bytes")}
+            for z in SIZES}}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

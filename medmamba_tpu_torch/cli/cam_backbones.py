@@ -16,9 +16,11 @@ mode, as here. The image is read with ``utils/png.py: load_rgb`` (a PNG
 already at ``--image_size`` square needs no PIL) and preprocessed as the
 JAX CLI does; the input and the overlay are written side by side to
 ``--output`` with ``utils/png.py`` (the JAX CLI draws a titled matplotlib
-figure). The forward stays eager: a CUDA graph's capture costs more than
-the one forward a process serves. Runs on the card (``--device cuda``, the
-default; raises without one) or, when asked, on the CPU.
+figure). The forward and the Grad-CAM stay eager (``eval/gradcam.py:
+grad_cam``, not ``cam_fn``): a process serves one image, and a CUDA
+graph's warm-up and capture would cost more than the one CAM it saves.
+Runs on the card (``--device cuda``, the default; raises without one) or,
+when asked, on the CPU.
 
 Usage:
     python -m medmamba_tpu_torch.cli.cam_backbones --arch vit --image img.png \

@@ -7,8 +7,9 @@ a Grad-CAM overlay (target = the predicted class or a manual index), or pick
 a random image from ``--test_dir`` (``GET /random?mode=gt|pred|manual``).
 Runs on the card (``--device cuda``, the default; raises without one),
 where the softmax forward is one CUDA graph (``train/trainer.py:
-compile_forward``) and the Grad-CAM runs eagerly, or, when asked, on the
-CPU. Pages carry their images as PNGs written with
+compile_forward``) and the Grad-CAM another (``eval/gradcam.py:
+compile_cam``, at most ``CAM_GRAPHS`` of them), or, when asked, on the
+CPU, eagerly. Pages carry their images as PNGs written with
 ``utils/png.py``; an uploaded PNG already at ``--image_size`` square is
 decoded without PIL, any other image needs PIL. ``--scan_tau`` and
 ``--tau_gate`` are accepted for the JAX CLI's flag surface and do nothing:
@@ -76,8 +77,9 @@ def build_app(args):
     name_to_idx = {str(k): int(v) for k, v in class_indices.items()}
     model = create_model(args.medmb_size, num_classes, device=device)
     model.load_state_dict(state_dict, strict=True)
-    # the batch-1 softmax forward: one CUDA graph on the card
+    # the batch-1 softmax forward and the Grad-CAM: CUDA graphs on the card
     forward = forward_fn(model, device, image_size=args.image_size)
+    grad_cam = gradcam.cam_fn(model, device)
 
     def infer(img_bytes: bytes, target: int):
         """(img, overlay, probs, pred, tc): the uint8 input and overlay,
@@ -86,10 +88,9 @@ def build_app(args):
         img = png.load_rgb(img_bytes, args.image_size)
         probs, x = forward(torch.from_numpy(img[None]))
         probs = probs[0].cpu().numpy()
-        x = x.clone()     # the graph's buffer; the CAM runs eagerly on it
         pred = int(probs.argmax())
         tc = pred if target < 0 else int(target)
-        cam = gradcam.grad_cam(model, x, target_class=np.array([tc]))[0]
+        cam = grad_cam(x, target_class=np.array([tc]))[0]
         overlay = gradcam.show_cam_on_image(img.astype(np.float32) / 255.0,
                                             cam)
         return img, overlay, probs, pred, tc

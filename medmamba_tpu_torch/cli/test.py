@@ -9,9 +9,9 @@ layer (the last conv-branch 1x1 of the last block, before its ReLU) or at
 overlay side by side, written with ``utils/png.py`` (the JAX CLI draws a
 titled matplotlib figure instead). Runs on the card (``--device cuda``, the
 default; raises without one), where the softmax forward is one CUDA graph
-(``train/trainer.py: compile_forward``) and the Grad-CAM runs eagerly, or,
-when asked, on the CPU. A PNG already at
-``--image_size`` square is decoded without PIL.
+(``train/trainer.py: compile_forward``) and the Grad-CAM another
+(``eval/gradcam.py: compile_cam``), or, when asked, on the CPU, eagerly.
+A PNG already at ``--image_size`` square is decoded without PIL.
 
 Usage:
     python -m medmamba_tpu_torch.cli.test --checkpoint_path weights.pth \
@@ -61,7 +61,7 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from medmamba_tpu_torch.eval.gradcam import grad_cam, show_cam_on_image
+    from medmamba_tpu_torch.eval.gradcam import cam_fn, show_cam_on_image
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train.checkpoint import restore_params
     from medmamba_tpu_torch.train.trainer import forward_fn
@@ -74,8 +74,9 @@ def main(argv=None):
     model = create_model(args.medmb_size, args.num_classes, device=device)
     state_dict, _ = restore_params(args.checkpoint_path)
     model.load_state_dict(state_dict, strict=True)
-    # the batch-1 softmax forward: one CUDA graph on the card
+    # the batch-1 softmax forward and the Grad-CAM: CUDA graphs on the card
     forward = forward_fn(model, device, image_size=args.image_size)
+    grad_cam = cam_fn(model, device)
 
     paths = []
     for base, _, files in os.walk(args.test_dir):
@@ -95,11 +96,10 @@ def main(argv=None):
             img = png.load_rgb(f.read(), args.image_size)
         probs, x = forward(torch.from_numpy(img[None]))
         probs = probs[0].cpu().numpy()
-        x = x.clone()     # the graph's buffer; the CAM runs eagerly on it
         pred = int(probs.argmax())
         conf = float(probs[pred])
 
-        cam = grad_cam(model, x, target_class=np.array([pred]),
+        cam = grad_cam(x, target_class=np.array([pred]),
                        target_paths=tpaths)[0]
         overlay = show_cam_on_image(img.astype(np.float32) / 255.0, cam)
         out = os.path.join(args.output_dir, f"gradcam_{i}.png")

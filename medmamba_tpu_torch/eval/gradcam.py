@@ -20,8 +20,15 @@ differentiates only with respect to zero perturbations of them. So the
 backward runs only through what lies downstream of the targets: on the card,
 K2 launches only for the scans between a target and the logits.
 
-The JAX module caches its jitted programs (``_LRU``); eager PyTorch has no
-program to cache, so there is no counterpart.
+The CAM is a step body (``_CamBody``: tensors in, the CAM and the logits
+out, no host sync) and a host wrapper that installs the taps, freezes the
+parameters, sets eval mode and copies the CAM to the host. ``grad_cam``
+runs the body eagerly; ``compile_cam`` captures it as CUDA graphs, one per
+static signature, at most ``CAM_GRAPHS`` of them: the counterpart of the
+JAX module's jitted ``cam_program`` and its bounded ``_LRU`` caches. The
+JAX module predicts the class in a second program (``_predict``); here the
+argmax of the CAM forward's own logits, the same eval forward, is taken on
+the device.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from medmamba_tpu_torch.data.transforms import resize
+from medmamba_tpu_torch.utils import graphs
 
 # matplotlib's "jet" (matplotlib/_cm.py: _jet_data), as (x, y0, y1) segments
 _JET = {
@@ -146,20 +154,120 @@ def _scale(cam: torch.Tensor) -> torch.Tensor:
     return cam / (1e-7 + cam.amax(dim=(1, 2), keepdim=True))
 
 
+class _CamBody:
+    """The CAM's step: ``body(images, target, *subs) -> (cam, logits)``,
+    tensors in and tensors out on the images' device, with no host sync, so
+    a CUDA graph can capture it (:func:`compile_cam`). ``target`` is the
+    (B,) class tensor, or None for the argmax of the CAM forward's own
+    logits (the eval forward, as JAX's ``_predict`` computes it); ``subs``
+    are the ``substitute`` tensors in the order of ``sub_keys``.
+
+    It runs only inside :func:`_cam_setup`, which installs ``tap`` at the
+    target and substitute sites (their tap keys ``keys`` and
+    ``sub_keys``), freezes the parameters and puts the model in eval mode:
+    the loss is differentiated with respect to the tapped activations
+    only."""
+
+    def __init__(self, model, size: Tuple[int, int], reshape_transform=None):
+        self.model, self.size = model, size
+        self.reshape_transform = reshape_transform
+        self.keys, self.sub_keys = [], []
+        self.acts, self.subs = {}, {}
+
+    def tap(self, key, x):
+        if key in self.keys and not x.requires_grad:
+            x = x.detach().requires_grad_(True)
+        if key in self.subs:
+            x = _Substitute.apply(x, self.subs[key].to(x))
+        if key in self.keys:
+            self.acts[key] = x
+        return x
+
+    def __call__(self, images: torch.Tensor, target: Optional[torch.Tensor],
+                 *subs: torch.Tensor):
+        self.subs = dict(zip(self.sub_keys, subs))
+        try:
+            with torch.enable_grad():
+                logits = self.model(images)
+                if target is None:
+                    target = logits.detach().argmax(-1)
+                loss = logits.gather(1, target[:, None]).sum()
+                grads = torch.autograd.grad(
+                    loss, [self.acts[k] for k in self.keys])
+            acts = [self.acts[k].detach() for k in self.keys]
+        finally:
+            self.acts, self.subs = {}, {}
+        cams = []
+        with torch.no_grad():
+            for g, act in zip(grads, acts):
+                if self.reshape_transform is not None:
+                    g = self.reshape_transform(g)
+                    act = self.reshape_transform(act)
+                weights = g.mean(dim=(1, 2), keepdim=True)          # (B,1,1,C)
+                cam = torch.clamp_min((weights * act).sum(-1), 0.0)  # (B,h,w)
+                cam = resize(cam.float()[..., None], self.size)[..., 0]
+                cams.append(_scale(cam))
+            cam = _scale(torch.stack(cams, 1).mean(1))
+        return cam, logits.detach()
+
+
+@contextlib.contextmanager
+def _cam_setup(model, target_paths: Sequence, sub_paths: Sequence,
+               size: Tuple[int, int], reshape_transform=None):
+    """Within the block: the model in eval mode (the JAX program runs it
+    deterministic), its parameters frozen, and the taps of a
+    :class:`_CamBody` at ``target_paths`` and ``sub_paths``, which it
+    yields; afterwards the training flag and the parameters'
+    ``requires_grad`` as they were, and no tap left."""
+    was_training = model.training
+    params = list(model.parameters())
+    flags = [p.requires_grad for p in params]
+    n = len(target_paths)
+    body = _CamBody(model, size, reshape_transform)
+    model.eval()
+    try:
+        for p in params:
+            p.requires_grad_(False)
+        with _tapped(model, [*target_paths, *sub_paths], body.tap) as keys:
+            body.keys, body.sub_keys = keys[:n], keys[n:]
+            yield body
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+        model.train(was_training)
+
+
+def _cam_args(model, images, target_class, target_path, target_paths,
+              substitute):
+    """(target paths as dotted strings, the target tensor or None, the
+    substitute paths, the substitute tensors) of a CAM call."""
+    if target_paths is None:
+        target_paths = [target_path or default_target_path(model)]
+    paths = tuple(p if isinstance(p, str) else ".".join(p)
+                  for p in target_paths)
+    target = None if target_class is None else torch.as_tensor(
+        target_class).long().to(images.device)
+    substitute = substitute or {}
+    return paths, target, tuple(substitute), tuple(substitute.values())
+
+
 def grad_cam(model, images: torch.Tensor,
              target_class=None,
              target_path: Optional[Sequence[str]] = None,
              target_paths: Optional[Sequence] = None,
              reshape_transform=None,
              substitute: Optional[dict] = None) -> np.ndarray:
-    """Grad-CAM heatmaps of ``model`` (on the device of ``images``).
+    """Grad-CAM heatmaps of ``model`` (on the device of ``images``), run
+    eagerly: the library API, the CPU path and the reference of
+    :func:`compile_cam`'s graphs.
 
     images: preprocessed float NHWC batch, made outside
-    ``torch.inference_mode``. target_class: ints (B,) or None (the predicted
-    class, from one more forward). ``target_paths``: several target layers
-    (paths as ``VSSM.tap_site`` takes them), whose CAMs are min-max scaled,
-    averaged and scaled again (grad_cam/utils.py:112-116); ``target_path``
-    is the one-layer shorthand. ``reshape_transform`` maps a token-shaped
+    ``torch.inference_mode``. target_class: ints (B,) or None (the
+    predicted class: the argmax of the CAM forward's own logits).
+    ``target_paths``: several target layers (paths as ``VSSM.tap_site``
+    takes them), whose CAMs are min-max scaled, averaged and scaled again
+    (grad_cam/utils.py:112-116); ``target_path`` is the one-layer
+    shorthand. ``reshape_transform`` maps a token-shaped
     activation and its gradient to NHWC. The model runs in eval mode, as the
     JAX program runs it deterministic; its training flag and its
     parameters' ``requires_grad`` are restored afterwards.
@@ -171,59 +279,68 @@ def grad_cam(model, images: torch.Tensor,
     output and at the targets, every ReLU masks the same elements in both.
     Returns (B, H, W) float32 in [0, 1].
     """
-    if target_paths is None:
-        target_paths = [target_path or default_target_path(model)]
-    b, h_in, w_in, _ = images.shape
-    was_training = model.training
-    params = list(model.parameters())
-    flags = [p.requires_grad for p in params]
-    substitute = substitute or {}
-    acts, subs, targets = {}, {}, set()
-
-    def capture(key, x):
-        if key in targets and not x.requires_grad:
-            x = x.detach().requires_grad_(True)
-        if key in subs:
-            x = _Substitute.apply(x, subs[key].to(x))
-        if key in targets:
-            acts[key] = x
-        return x
-
-    model.eval()
-    try:
-        if target_class is None:
-            with torch.no_grad():
-                target_class = model(images).argmax(-1)
-        target = torch.as_tensor(target_class).long().to(images.device)
-        for p in params:
-            p.requires_grad_(False)
-        n = len(target_paths)
-        with _tapped(model, [*target_paths, *substitute], capture) as keys, \
-                torch.enable_grad():
-            subs.update(zip(keys[n:], substitute.values()))
-            keys = keys[:n]
-            targets.update(keys)
-            logits = model(images)
-            loss = logits.gather(1, target[:, None]).sum()
-            grads = torch.autograd.grad(loss, [acts[k] for k in keys])
-    finally:
-        for p, flag in zip(params, flags):
-            p.requires_grad_(flag)
-        model.train(was_training)
-
-    cams = []
-    with torch.no_grad():
-        for g, key in zip(grads, keys):
-            act = acts[key].detach()
-            if reshape_transform is not None:
-                g = reshape_transform(g)
-                act = reshape_transform(act)
-            weights = g.mean(dim=(1, 2), keepdim=True)            # (B,1,1,C)
-            cam = torch.clamp_min((weights * act).sum(-1), 0.0)   # (B,h,w)
-            cam = resize(cam.float()[..., None], (h_in, w_in))[..., 0]
-            cams.append(_scale(cam))
-        cam = _scale(torch.stack(cams, 1).mean(1))
+    paths, target, sub_paths, subs = _cam_args(
+        model, images, target_class, target_path, target_paths, substitute)
+    with _cam_setup(model, paths, sub_paths, tuple(images.shape[1:3]),
+                    reshape_transform) as body:
+        cam, _ = body(images, target, *subs)
     return cam.cpu().numpy().astype(np.float32)
+
+
+# the CAM's graphs a model keeps, as the JAX package's ``_LRU(maxsize=16)``
+# keeps its CAM programs; each batch-1 medmamba_t graph holds about 25 MB
+CAM_GRAPHS = 16
+
+
+def compile_cam(model):
+    """:func:`grad_cam` as CUDA graphs (``utils/graphs.py``), the
+    counterpart of the JAX package's jitted ``cam_program``: call the
+    result as ``grad_cam`` without its ``model`` argument, on images on the
+    card; it returns the same (B, H, W) float32 array.
+
+    One graph per static signature (the images' shape and dtype, whether a
+    class is given, the target paths, the substitute paths and their
+    tensors' shapes, ``reshape_transform``, and the scan variables
+    ``graphs.cache_key`` adds), at most ``CAM_GRAPHS`` of them, the least
+    recently used freed first. The target class and the substitute tensors
+    are graph inputs, copied into the graph's buffers at each call; with no
+    class the graph takes the argmax on the card. The taps, the frozen
+    parameters and eval mode are set around the capture only: a replay
+    runs none of that Python. A capture that fails raises, naming the
+    operator it reached; nothing falls back to the eager CAM. The result's
+    ``step`` is the ``CompiledStep``."""
+    def capture(images, *rest, paths, sub_paths, predicted,
+                reshape_transform):
+        with _cam_setup(model, paths, sub_paths, tuple(images.shape[1:3]),
+                        reshape_transform) as body:
+            fn = body if not predicted else (
+                lambda im, *subs: body(im, None, *subs))
+            return graphs.Graph(fn, (images, *rest), label="Grad-CAM",
+                                model=model)
+    step = graphs.CompiledStep("grad_cam", capture, maxsize=CAM_GRAPHS)
+
+    def cam(images: torch.Tensor, target_class=None, target_path=None,
+            target_paths=None, reshape_transform=None, substitute=None
+            ) -> np.ndarray:
+        paths, target, sub_paths, subs = _cam_args(
+            model, images, target_class, target_path, target_paths,
+            substitute)
+        rest = subs if target is None else (target, *subs)
+        out, _ = step(images, *rest, paths=paths, sub_paths=sub_paths,
+                      predicted=target is None,
+                      reshape_transform=reshape_transform)
+        return out.cpu().numpy().astype(np.float32)
+    cam.step = step
+    return cam
+
+
+def cam_fn(model, device: torch.device):
+    """The CLIs' Grad-CAM on ``device``, called as ``grad_cam`` without its
+    ``model`` argument: on the card :func:`compile_cam`, on the CPU the
+    eager :func:`grad_cam`."""
+    if torch.device(device).type == "cuda":
+        return compile_cam(model)
+    return functools.partial(grad_cam, model)
 
 
 def show_cam_on_image(img: np.ndarray, mask: np.ndarray,

@@ -63,6 +63,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from medmamba_tpu_torch.utils.device import resolve_device
+
 # The mesh most recently built by make_mesh, or None (one process)
 _ACTIVE_MESH = None
 
@@ -89,12 +91,13 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) or from the arguments
     (``rank``, ``world_size``, ``init_method``, e.g. ``file://...`` or
     ``tcp://localhost:<port>``); a group that is already initialised is
-    used as it is. ``device``: "cuda" (the default where a card is
-    present) binds the rank to ``cuda:LOCAL_RANK`` (else to ``rank``'s
-    card, or to the current card where a group was made before), a
-    ``cuda:<i>`` to that
-    card (two ranks on one card over gloo), "cpu" to nothing. ``backend``:
-    NCCL on the card and gloo on the CPU by default.
+    used as it is. ``device``: "cuda" (the default; without a card it
+    raises as ``utils/device.py: resolve_device`` does, whether or not a
+    group was asked for) binds the rank to ``cuda:LOCAL_RANK`` (else to
+    ``rank``'s card, or to the current card where a group was made
+    before), a ``cuda:<i>`` to that card (two ranks on one card over
+    gloo), and only an explicit "cpu" to nothing. ``backend``: NCCL on the
+    card and gloo on the CPU by default.
 
     The mesh is ``n_data x n_model``, row-major as the JAX module reshapes
     its devices: rank ``d * n_model + m`` is data row ``d``, model rank
@@ -105,14 +108,12 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, *,
     first step."""
     if n_model < 1:
         raise ValueError(f"n_model must be at least 1, got {n_model}")
+    device = resolve_device("cuda" if device is None else device)
     asked = (world_size is not None or rank is not None
              or init_method is not None or "WORLD_SIZE" in os.environ)
     if not dist.is_initialized() and not asked:
         set_active_mesh(None)
         return None
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
     if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", int(os.environ.get(

@@ -22,6 +22,11 @@ How it differs from the JAX package's StableHLO artifact:
   its ``csrc/``; it needs no checkpoint: the weights are in the artifact.
 - There is no ``platforms`` argument: the artifact's tensors live on the
   device it was exported on (``device``), and it runs there.
+- On the card ``Exported.call`` replays a CUDA graph of the loaded module,
+  one per input shape (at most ``EXPORT_GRAPHS``, the least recently used
+  freed first; ``utils/graphs.py``), as the JAX package's artifact holds
+  ``jax.jit(fwd)``; the scan nodes' launch counts taken at capture are
+  added at each replay. On the CPU it runs the module op by op.
 """
 from __future__ import annotations
 
@@ -33,11 +38,14 @@ import torch
 
 from medmamba_tpu_torch.data.transforms import preprocess
 from medmamba_tpu_torch.ops import scan_op  # noqa: F401  (registers the ops)
+from medmamba_tpu_torch.utils import graphs
 from medmamba_tpu_torch.utils.device import resolve_device
 
 # the batch a symbolic-batch artifact is traced at: torch specialises a
 # dimension of size 0 or 1 to a constant
 TRACE_BATCH = 2
+# the graphs an artifact keeps on the card: one per input shape
+EXPORT_GRAPHS = 16
 
 
 class _Forward(torch.nn.Module):
@@ -95,18 +103,44 @@ def export_forward(model: torch.nn.Module, *, image_size: int = 224,
     return buf.getvalue()
 
 
+def compile_module(module: torch.nn.Module) -> graphs.CompiledStep:
+    """``module``'s forward without gradients as CUDA graphs, one per
+    input shape and dtype, at most EXPORT_GRAPHS of them, the least
+    recently used freed first: ``step(images)`` gives the graph's output
+    buffer, which the next call overwrites. The module's input checks
+    (the pre-hook ``ExportedProgram.module()`` adds) run at capture; its
+    parameters, buffers and lifted constants are watched by the graphs'
+    state guard. Raises for a module off the card: nothing falls back to
+    the eager call."""
+    def capture(images):
+        def forward(x):
+            with torch.no_grad():
+                return module(x)
+        return graphs.Graph(forward, (images,), label="exported forward",
+                            model=module)
+    return graphs.CompiledStep("exported", capture, maxsize=EXPORT_GRAPHS)
+
+
 class Exported:
     """A loaded artifact: ``call(images)`` runs it without gradients on
     images on the device it was exported on, at the port's precision there
     (on the card float32 without TF32, which ``resolve_device`` fixes for
-    the process: the flags are not part of the graph)."""
+    the process: the flags are not part of the graph). On the card each
+    input shape's call replays its CUDA graph (:func:`compile_module`)."""
 
     def __init__(self, program: torch.export.ExportedProgram):
-        resolve_device(next(iter(program.state_dict.values())).device)
+        self.device = resolve_device(
+            next(iter(program.state_dict.values())).device)
         self.program = program
         self._module = program.module()
+        self.graphs = compile_module(self._module) \
+            if self.device.type == "cuda" else None
 
     def call(self, images: torch.Tensor) -> torch.Tensor:
+        """(B, classes) probabilities, a tensor of its own: on the card a
+        copy of the graph's output, which the next call overwrites."""
+        if self.graphs is not None:
+            return self.graphs(images).clone()
         with torch.no_grad():
             return self._module(images)
 

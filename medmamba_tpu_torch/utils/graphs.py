@@ -31,9 +31,9 @@ function into one CUDA graph per signature and replays it:
   would.
 * **The state guard** (:class:`StateGuard`): a graph reads and writes the
   tensors it was captured with. A replay raises if a parameter, buffer,
-  optimizer-state tensor or tensor learning rate was replaced since capture
-  (``opt.load_state_dict``, ``model.to(other)``), rather than updated in
-  place.
+  tensor attribute, optimizer-state tensor or tensor learning rate was
+  replaced since capture (``opt.load_state_dict``, ``model.to(other)``),
+  rather than updated in place.
 
 Random draws from a ``torch.Generator`` inside the step come from the
 generators registered with the graph (``CUDAGraph.register_generator_state``;
@@ -92,9 +92,10 @@ def cache_key(name: str, tensors: Sequence[torch.Tensor], static: Dict):
 
 
 class StateGuard:
-    """The data pointers of a model's parameters and buffers and of an
-    optimizer's state tensors and tensor learning rates, as they were when
-    the guard was made; :meth:`check` raises if any has changed. The
+    """The data pointers of a model's parameters, buffers and tensor
+    attributes and of an optimizer's state tensors and tensor learning
+    rates, as they were when the guard was made; :meth:`check` raises if
+    any has changed. The
     tensors are looked up where the model and the optimizer hold them
     (module by module, parameter by parameter), found once here: a check
     walks no module tree."""
@@ -107,7 +108,12 @@ class StateGuard:
                             for n, p in m._parameters.items()
                             if p is not None],
             "a buffer": [(m._buffers, n) for m in mods
-                         for n, b in m._buffers.items() if b is not None]}
+                         for n, b in m._buffers.items() if b is not None],
+            # a tensor held as a plain attribute: an exported program's
+            # lifted constants (the preprocessing's resize weights)
+            "a constant tensor": [(vars(m), n) for m in mods
+                                  for n, v in vars(m).items()
+                                  if torch.is_tensor(v)]}
         self.opt = opt
         if opt is not None:
             self.slots["a learning-rate tensor"] = [
@@ -234,18 +240,31 @@ class CompiledStep:
 
     ``capture(*inputs, **static) -> Graph`` makes the graph of one
     signature; ``free`` (optional) is called after the graphs are freed.
-    ``graphs`` maps each signature (:func:`cache_key`) to its graph."""
+    ``graphs`` maps each signature (:func:`cache_key`) to its graph, least
+    recently used first. With ``maxsize``, capturing one more graph than
+    that first frees the least recently used one (``Graph.free``) and
+    returns its pool to the card, as the JAX package's ``_LRU`` bounds its
+    programs: a server called at many shapes holds at most ``maxsize``
+    pools."""
 
     def __init__(self, name: str, capture: Callable[..., Graph],
-                 free: Optional[Callable[[], None]] = None):
+                 free: Optional[Callable[[], None]] = None,
+                 maxsize: Optional[int] = None):
+        if maxsize is not None and maxsize < 1:
+            raise ValueError(f"maxsize must be at least 1, got {maxsize}")
         self.name, self._capture, self._free = name, capture, free
+        self.maxsize = maxsize
         self.graphs: Dict[tuple, Graph] = {}
 
     def __call__(self, *inputs: torch.Tensor, **static):
         key = cache_key(self.name, inputs, static)
-        graph = self.graphs.get(key)
+        graph = self.graphs.pop(key, None)
         if graph is None:
-            graph = self.graphs[key] = self._capture(*inputs, **static)
+            if self.maxsize is not None and len(self.graphs) >= self.maxsize:
+                self.graphs.pop(next(iter(self.graphs))).free()
+                torch.cuda.empty_cache()
+            graph = self._capture(*inputs, **static)
+        self.graphs[key] = graph
         return graph(*inputs)
 
     def free(self) -> None:

@@ -4,8 +4,11 @@ the card: ``test_torch_port_cuda.py -k graph`` and ``chip_smoke.py`` phase
 
 * The step bodies a graph captures make no host sync and copy nothing from
   host memory after their first call: ``train_step`` (augmenting, with the
-  capturable AdamW the card runs), ``eval_step`` and ``predict``, under a
-  dispatch mode that records every operator.
+  capturable AdamW the card runs), ``eval_step``, ``predict`` and the
+  Grad-CAM's body (at the default target with the class taken on the
+  device, at two targets, with ``substitute``), under a dispatch mode that
+  records every operator; the CAM body gives the eager ``grad_cam``'s
+  bits.
 * The tensor learning rate with ``MultiStepLR`` against the JAX package's
   ``train_step`` with optax's piecewise schedule
   (``medmamba_tpu/train/trainer.py:46-57``), on the tiny VSSM from one set
@@ -13,7 +16,9 @@ the card: ``test_torch_port_cuda.py -k graph`` and ``chip_smoke.py`` phase
 * Checkpoints of the tensor-rate optimizer keep the reference schema and
   resume an eager AdamW to the same next step, and the reverse.
 * ``utils/graphs.py``'s device-free parts: the cache key, the state guard,
-  the launch counts a replay adds, and the refusal of a CPU model.
+  the launch counts a replay adds, the bound on a step's graphs (a fake
+  capture), and the refusal of a CPU model by every compiled step, the
+  graphed Grad-CAM and an artifact's graphs.
 * ``cli.train`` logs each step's own loss when the step returns one
   buffer that every call overwrites, as a graph's loss is.
 """
@@ -31,6 +36,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from medmamba_tpu.models import vssm as jv
 from medmamba_tpu.train import trainer as jax_trainer
 from medmamba_tpu_torch.cli import train as train_cli
+from medmamba_tpu_torch.data.transforms import preprocess
+from medmamba_tpu_torch.eval import gradcam
 from medmamba_tpu_torch.models import vssm as tv
 from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
 from medmamba_tpu_torch.train import checkpoint as ckpt
@@ -118,6 +125,47 @@ def test_steps_copy_nothing_from_host_memory_after_their_first_call(
     for fn in fns.values():
         fn()
     assert calls == []
+
+
+# the CAM body's cases: (target paths, a class given, substitute sites)
+CAM_CASES = {
+    "default": (None, False, ()),
+    "two_targets": (["layers_0.blocks_0.conv1x1", "layers_1.blocks_0.conv1x1"],
+                    True, ()),
+    "substitute": (["layers_0.blocks_0.conv1x1"], True,
+                   ("layers_0.blocks_0.conv1x1", "layers_0.blocks_0")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAM_CASES))
+def test_cam_body_makes_no_host_sync_and_no_host_copy(case, monkeypatch):
+    """The Grad-CAM's step body, inside the taps its host wrapper installs:
+    the second call dispatches none of SYNCS and copies nothing from host
+    memory (the first makes the resize matrices, as a graph's warm-up
+    does), and its CAM is the eager ``grad_cam``'s bit for bit."""
+    model = tv.VSSM(**SMALL).eval()
+    x = preprocess(_uint8(4), size=32)
+    paths, given, sites = CAM_CASES[case]
+    paths = paths or [".".join(gradcam.default_target_path(model))]
+    target = torch.tensor([1, 0, 3]) if given else None
+    subs = gradcam.target_activations(model, x, sites)
+    with gradcam._cam_setup(model, paths, sites, (32, 32)) as body:
+        body(x, target, *subs)
+        calls, real = [], torch.from_numpy
+        monkeypatch.setattr(torch, "from_numpy",
+                            lambda a: calls.append(a.shape) or real(a))
+        with _Ops() as ops:
+            cam, logits = body(x, target, *subs)
+        monkeypatch.setattr(torch, "from_numpy", real)
+    assert "aten.mm" in ops.names or "aten.addmm" in ops.names
+    assert not ops.names & SYNCS, ops.names & SYNCS
+    assert calls == []
+    assert cam.shape == (3, 32, 32) and logits.shape == (3, 4)
+    assert all(not m.taps for m in model.modules() if hasattr(m, "taps"))
+    want = gradcam.grad_cam(model, x, target_class=target,
+                            target_paths=paths,
+                            substitute=dict(zip(sites, subs)))
+    np.testing.assert_array_equal(cam.numpy(), want)
 
 
 def _jax_state(variables, tx):
@@ -349,6 +397,66 @@ def test_compiled_steps_refuse_a_cpu_model():
                                                          image_size=32)):
         with pytest.raises(RuntimeError, match="CUDA graphs need"):
             call()
+
+
+class _FakeGraph:
+    def __init__(self, key):
+        self.key, self.freed = key, False
+
+    def __call__(self, *inputs):
+        return self.key
+
+    def free(self):
+        self.freed = True
+
+
+def test_compiled_step_frees_its_least_recently_used_graph():
+    """With ``maxsize`` 2, a third signature frees the graph used least
+    recently; a hit refreshes its graph, which then outlives an older
+    one."""
+    made = []
+
+    def capture(x, *, tag):
+        made.append(_FakeGraph((tuple(x.shape), tag)))
+        return made[-1]
+    step = graphs.CompiledStep("fake", capture, maxsize=2)
+    a, b, c = torch.zeros(1), torch.zeros(2), torch.zeros(3)
+    assert step(a, tag=0) == ((1,), 0) and step(b, tag=0) == ((2,), 0)
+    assert step(a, tag=0) == ((1,), 0) and len(made) == 2   # a hit
+    step(c, tag=0)                        # frees b's graph, not a's
+    assert [g.freed for g in made] == [False, True, False]
+    step(a, tag=1)                        # another signature: frees a's
+    assert [g.freed for g in made] == [True, True, False, False]
+    assert len(step.graphs) == 2
+    step(b, tag=0)                        # captured again
+    assert len(made) == 5 and made[2].freed and not made[3].freed
+    step.free()
+    assert all(g.freed for g in made) and not step.graphs
+    with pytest.raises(ValueError, match="maxsize"):
+        graphs.CompiledStep("fake", capture, maxsize=0)
+
+
+def test_graphed_cam_and_artifact_refuse_a_cpu_model():
+    """No eager fallback: the graphed Grad-CAM and an artifact's graphs
+    raise for a model on the CPU; ``cam_fn`` and ``Exported.call`` take
+    the eager path on the CPU only because they are asked to run there."""
+    from medmamba_tpu_torch.utils.export import (compile_module,
+                                                 export_forward,
+                                                 load_exported)
+
+    model = tv.VSSM(**SMALL)
+    x = preprocess(_uint8(5), size=32)
+    cam = gradcam.compile_cam(model)
+    assert cam.step.maxsize == gradcam.CAM_GRAPHS == 16
+    for kw in (dict(), dict(target_class=[0, 1, 2])):
+        with pytest.raises(RuntimeError, match="CUDA graphs need"):
+            cam(x, **kw)
+    eager = gradcam.cam_fn(model, torch.device("cpu"))
+    np.testing.assert_array_equal(eager(x), gradcam.grad_cam(model, x))
+    exp = load_exported(export_forward(model, image_size=32, device="cpu"))
+    assert exp.graphs is None and exp.call(_uint8(6, size=32)).shape == (3, 4)
+    with pytest.raises(RuntimeError, match="CUDA graphs need"):
+        compile_module(exp._module)(_uint8(6, size=32))
 
 
 def test_train_cli_logs_each_steps_own_loss(tmp_path, monkeypatch, capsys):

@@ -1255,6 +1255,161 @@ def test_graph_state_guard_raises_after_load_state_dict(cuda):
     step.free()
 
 
+def _cam_bits(model, cam, x, **kw):
+    """The graphed CAM ``cam`` of ``model`` against the eager ``grad_cam``
+    bit for bit where two eager CAMs agree; else, and then only, a graph
+    captured under cuDNN's deterministic algorithms against the eager CAM
+    there. Returns the graphed CAM."""
+    from medmamba_tpu_torch.eval.gradcam import compile_cam, grad_cam
+
+    want, again = grad_cam(model, x, **kw), grad_cam(model, x, **kw)
+    got = cam(x, **kw)
+    if np.array_equal(want, again):
+        np.testing.assert_array_equal(got, want)
+        return got
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det = compile_cam(model)
+        np.testing.assert_array_equal(det(x, **kw), grad_cam(model, x, **kw))
+        det.step.free()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    return got
+
+
+@pytest.mark.parametrize("scan", ["ssd", "hillis"])
+def test_graph_cam_gives_the_eager_bits_with_exact_launches(cuda, scan,
+                                                            monkeypatch):
+    """The graphed Grad-CAM (``compile_cam``) against the eager
+    ``grad_cam`` on the same model: at the default target (6 forward
+    launches, no backward), with the class taken on the card, at two
+    targets upstream of 4 scans, and with ``substitute`` at a target and a
+    block's output; bit for bit where two eager CAMs agree (else under
+    ``cudnn.deterministic``), and the eager launches per replay."""
+    from medmamba_tpu_torch.eval.gradcam import (compile_cam,
+                                                 target_activations)
+
+    monkeypatch.setenv("MEDMAMBA_SCAN_KERNEL", scan)
+    model = _graph_model(cuda).eval()
+    x = torch.randn(2, 64, 64, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3))
+    cam = compile_cam(model)
+    up = ["layers_0.blocks_0.conv1x1", "layers_1.blocks_1.conv1x1"]
+    sites = [up[0], "layers_0.blocks_0"]
+    cases = [(dict(target_class=[1, 4]), 0), (dict(), 0),
+             (dict(target_class=[0, 2], target_paths=up), 4),
+             (dict(target_class=[3, 3], target_paths=up[:1],
+                   substitute=dict(zip(sites, target_activations(
+                       model, x, sites)))), 4)]
+    for kw, n_bwd in cases:
+        got = _cam_bits(model, cam, x, **kw)
+        assert got.shape == (2, 64, 64) and got.max() - got.min() > 0.5
+        scan_cuda.LAUNCHES = scan_cuda.BWD_LAUNCHES = 0
+        scan_hillis.HILLIS_LAUNCHES = scan_hillis.HILLIS_BWD_LAUNCHES = 0
+        cam(x, **kw)
+        counts = (scan_cuda.LAUNCHES, scan_cuda.BWD_LAUNCHES,
+                  scan_hillis.HILLIS_LAUNCHES,
+                  scan_hillis.HILLIS_BWD_LAUNCHES)
+        assert counts == ((6, n_bwd, 0, 0) if scan == "ssd"
+                          else (0, 0, 6, n_bwd)), (kw, counts)
+    assert len(cam.step.graphs) == len(cases)
+    assert all(not m.taps for m in model.modules() if hasattr(m, "taps"))
+    assert all(p.requires_grad for p in model.parameters())
+    cam.step.free()
+
+
+def test_graph_cam_keeps_at_most_its_bound(cuda, monkeypatch):
+    """Past CAM_GRAPHS signatures the least recently used graph is freed
+    and a call at its shape captures it again, with the same bits."""
+    from medmamba_tpu_torch.eval import gradcam
+
+    monkeypatch.setattr(gradcam, "CAM_GRAPHS", 2)
+    model = _graph_model(cuda).eval()
+    cam = gradcam.compile_cam(model)
+    xs = [torch.randn(b, 64, 64, 3, device=cuda) for b in (1, 2, 3)]
+    first = cam(xs[0], target_class=[0])
+    for x in xs[1:]:
+        cam(x, target_class=[0] * x.shape[0])
+    assert len(cam.step.graphs) == 2
+    np.testing.assert_array_equal(cam(xs[0], target_class=[0]), first)
+    assert len(cam.step.graphs) == 2
+    cam.step.free()
+
+
+def test_graph_exported_forward_gives_the_eager_artifacts_bits(cuda):
+    """``Exported.call`` on the card replays one graph per batch: the eager
+    artifact's bits (the loaded module run op by op), the live forward's
+    probabilities within 1e-5, 2 K1 a block a call, and a tensor of its
+    own that the next call does not overwrite."""
+    from medmamba_tpu_torch.data.transforms import preprocess
+    from medmamba_tpu_torch.utils.export import export_forward, load_exported
+
+    model = _graph_model(cuda).eval()
+    exp = load_exported(export_forward(model, image_size=64, device="cuda"))
+    x = _frames(cuda, 64, seed=2)
+    kept = []
+    for b in (64, 3, 1):
+        with torch.no_grad():
+            eager = exp._module(x[:b])
+            live = torch.softmax(model(preprocess(x[:b], size=64)), -1)
+        scan_cuda.LAUNCHES = 0
+        got = exp.call(x[:b])
+        torch.cuda.synchronize()
+        assert scan_cuda.LAUNCHES == 6, (b, scan_cuda.LAUNCHES)
+        assert torch.equal(got, eager), b
+        torch.testing.assert_close(got, live, rtol=1e-5, atol=1e-5)
+        kept.append((got, eager))
+    exp.call(x[:3].flip(0))
+    assert all(torch.equal(g, e) for g, e in kept)
+    assert len(exp.graphs.graphs) == 3
+
+
+# medmamba_b's scan shapes at 224^2: channels per group and length
+B_STAGE_SHAPES = [(128, 3136), (256, 784), (512, 196), (1024, 49)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("batch", [64, 1])
+@pytest.mark.parametrize("stage", range(len(B_STAGE_SHAPES)))
+def test_kernels_match_plain_versions_at_medmamba_b_shapes(cuda, stage,
+                                                           batch, dtype):
+    """K1 (y, the last state, the tile-entry states) and K2 forward and
+    reverse, K3 and K4, against their plain versions at medmamba_b's stage
+    shapes, at batch 64 (K1's 32-channel blocks) and 1 (8-channel
+    blocks)."""
+    dpg, l = B_STAGE_SHAPES[stage]
+    dt = getattr(torch, dtype)
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    for rev in ((False, False), (True, True)):
+        x = _inputs(cuda, b=batch, dpg=dpg, l=l, dtype=dt)
+        got = selective_scan(**x, delta_softplus=True, reverse_dirs=rev,
+                             out_dtype=dt, return_last_state=True)
+        want = selective_scan(**x, delta_softplus=True, reverse_dirs=rev,
+                              out_dtype=dt, return_last_state=True,
+                              impl="ref")
+        torch.testing.assert_close(got[0], want[0], rtol=tol, atol=tol)
+        torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-4)
+        del x, got, want
+        _check_backward(cuda, dict(b=batch, dpg=dpg, l=l, dtype=dt,
+                                   out_dtype=dt, reverse_dirs=rev))
+    x = _inputs(cuda, b=batch, dpg=dpg, l=l, dtype=dt)
+    args = [x[k] for k in NAMES]
+    got = scan_hillis.selective_scan_hillis_fwd(*args, delta_softplus=True)
+    want = selective_scan_hillis_ref(*args, delta_softplus=True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    gy = torch.randn(got[0].shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5))
+    grads = scan_hillis.selective_scan_hillis_bwd(*args, want[1], gy,
+                                                  delta_softplus=True)
+    wants = selective_scan_hillis_bwd_ref(*args, want[1], gy,
+                                          delta_softplus=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip(NAMES, grads, wants):
+        _rel_close(g, w, 1e-2 if g.dtype == torch.bfloat16 else 1e-4)
+
+
 def test_graph_replay_kernels_seen_by_the_profiler(cuda):
     """One train replay in the profiler: 2 K1 and 2 K2 launches a block
     (K2 two kernels a launch) and one K5, as the counters say."""

@@ -252,3 +252,19 @@ def test_masked_batch_norm_runs_as_before_without_a_mesh():
     xs = x[mask]
     mean = xs.mean((0, 2, 3))
     torch.testing.assert_close(bn.running_mean, 0.1 * mean)
+
+
+def test_make_mesh_without_a_device_raises_where_no_card_is_present(
+        monkeypatch):
+    """``make_mesh`` defaults to the card, as every entry point does: with
+    no card it raises ``resolve_device``'s error, asked for a group or not,
+    and takes the CPU only when the caller names it."""
+    from medmamba_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for kw in (dict(), dict(n_model=2), dict(rank=0, world_size=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.make_mesh(**kw)
+    assert active_mesh() is None and not torch.distributed.is_initialized()
+    assert mesh.make_mesh(device="cpu") is None and active_mesh() is None

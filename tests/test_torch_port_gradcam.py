@@ -57,6 +57,29 @@ def test_grad_cam_matches_jax(models, case):
     assert want.max() - want.min() > 0.5
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cam_step_body_matches_jax_and_the_eager_cam(models, case):
+    """The step body the CUDA graphs capture (``_CamBody`` inside the host
+    wrapper's ``_cam_setup``): its device-side CAM is the eager
+    ``grad_cam``'s bit for bit and within CAM_TOL of JAX's; its logits are
+    the eval forward's, whose argmax is the class taken when none is
+    given."""
+    jm, variables, tm, x = models
+    kw = CASES[case]
+    xt = torch.from_numpy(x)
+    paths, target, sub_paths, subs = tg._cam_args(
+        tm, xt, kw.get("target_class"), None, kw.get("target_paths"), None)
+    with tg._cam_setup(tm, paths, sub_paths, (16, 16)) as body:
+        cam, logits = body(xt, target, *subs)
+    assert cam.shape == (2, 16, 16) and cam.dtype == torch.float32
+    np.testing.assert_array_equal(cam.numpy(), tg.grad_cam(tm, xt, **kw))
+    np.testing.assert_allclose(
+        cam.numpy(), jg.grad_cam(jm, variables, jnp.asarray(x), **kw),
+        rtol=0, atol=CAM_TOL)
+    with torch.no_grad():
+        torch.testing.assert_close(logits, tm(xt), rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("blocks", [False, True], ids=["targets", "blocks"])
 @pytest.mark.parametrize("case", ["default", "mid_conv1x1", "two_paths"])
 def test_grad_cam_at_its_own_activations_is_unchanged(models, case, blocks):

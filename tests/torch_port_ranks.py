@@ -357,7 +357,7 @@ def tp_checks(rank, world, model_kw, weights, batches, augment, seed,
     grid = mesh.active_mesh()
     group = mesh.model_group()
     try:
-        mesh.make_mesh(n_data=3, n_model=2)
+        mesh.make_mesh(n_data=3, n_model=2, device="cpu")
     except ValueError as e:
         uncovered = str(e)
     else:
