@@ -36,6 +36,7 @@ def test_importing_the_port_loads_no_jax():
             "import medmamba_tpu_torch.ops.flops\n"
             "import medmamba_tpu_torch.tools.earlier_kernels\n"
             "import medmamba_tpu_torch.tools.tp_timing\n"
+            "import medmamba_tpu_torch.tools.trajectory\n"
             "import medmamba_tpu_torch.utils.graphs\n"
             "import medmamba_tpu_torch.cli.cam_backbones\n"
             "import medmamba_tpu_torch.models.vit\n"

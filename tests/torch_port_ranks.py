@@ -41,6 +41,36 @@ def spawn(fn, world: int, root, *args, device: str = "cpu",
     on ``device``: "cpu" or "cuda:0" (every rank on that one), or "cuda"
     (rank i on card i, as NCCL needs); the mesh has ``n_model`` model
     ranks a data row."""
+    return start(fn, world, root, *args, device=device, backend=backend,
+                 n_model=n_model).results()
+
+
+class Ranks:
+    """Rank processes that :func:`start` launched; :meth:`results` joins
+    them and returns what each saved."""
+
+    def __init__(self, procs, root: str):
+        self.procs, self.root = procs, root
+
+    def results(self, join_s: float = JOIN_S) -> list:
+        procs = self.procs
+        for p in procs:
+            p.join(join_s)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        assert not hung, f"{len(hung)} rank(s) still running after {join_s} s"
+        assert [p.exitcode for p in procs] == [0] * len(procs), \
+            [p.exitcode for p in procs]
+        return [torch.load(os.path.join(self.root, f"rank{r}.pt"),
+                           weights_only=True) for r in range(len(procs))]
+
+
+def start(fn, world: int, root, *args, device: str = "cpu",
+          backend: str = "gloo", n_model: int = 1) -> Ranks:
+    """:func:`spawn` without waiting: the caller works on while the ranks
+    run, then calls ``results()``."""
     import multiprocessing as mp
 
     root = str(root)
@@ -51,17 +81,7 @@ def spawn(fn, world: int, root, *args, device: str = "cpu",
              for r in range(world)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(JOIN_S)
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join()
-    assert not hung, f"{len(hung)} rank(s) still running after {JOIN_S} s"
-    assert [p.exitcode for p in procs] == [0] * world, \
-        [p.exitcode for p in procs]
-    return [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
-            for r in range(world)]
+    return Ranks(procs, root)
 
 
 def local(x: torch.Tensor, rank: int, world: int, dim: int = 0):
@@ -140,6 +160,27 @@ def graphed_steps(rank, world, model_kw, weights, images, labels, steps,
                          state={k: v.cpu()
                                 for k, v in model.state_dict().items()})
     return out
+
+
+def trajectory(rank, world, model_kw, weights, images, labels, first,
+               image_size):
+    """The trajectory harness's mesh arm on the active mesh (the 2x1 data
+    mesh or the 1x2 model mesh): ``tools/trajectory.py: run_arm`` on the
+    uint8 stream ``images``/``labels`` (augmentation off), and the first
+    step's whole gradients on the batch ``first``. Returns the losses,
+    the final whole state and those gradients."""
+    from medmamba_tpu_torch.tools import trajectory as harness
+
+    grid = mesh.active_mesh()
+    arm = harness.run_arm(model_kw, weights, images, labels, device="cpu",
+                          mesh=grid, image_size=image_size)
+    if torch.distributed.get_world_size(mesh.model_group(grid)) == 1:
+        step = train_step(rank, world, model_kw, weights, *first, False, 0,
+                          image_size)
+    else:
+        step = tp_step(model_kw, weights, *first, False, 0, image_size)
+    return dict(losses=torch.from_numpy(arm["losses"]), state=arm["state"],
+                grads=step["grads"])
 
 
 def eval_step(rank, world, model_kw, weights, images, labels, image_size):
