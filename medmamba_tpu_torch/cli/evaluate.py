@@ -15,6 +15,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse_args(argv=None):
@@ -69,6 +70,7 @@ def main(argv=None):
     from medmamba_tpu_torch.models.registry import create_model
     from medmamba_tpu_torch.train.checkpoint import restore_params
     from medmamba_tpu_torch.train.trainer import forward_fn
+    from medmamba_tpu_torch.utils import tracing
     from medmamba_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
@@ -89,7 +91,9 @@ def main(argv=None):
     cm = ConfusionMatrix(num_classes, labels=labels)
     loader = BatchLoader(ds, args.batch_size, shuffle=False)
     kept = []
+    before, batches = tracing.snapshot(), 0
     for images, trues in loader.epoch(0):
+        batches += 1
         probs = forward(torch.from_numpy(images))[0].cpu().numpy()
         # the loader pads the final partial batch with label -1: padded
         # rows stay out of the metrics
@@ -97,6 +101,8 @@ def main(argv=None):
         cm.update(probs.argmax(1)[valid], trues[valid], probs[valid])
         kept.append(probs[valid])
 
+    print(f"evaluate {tracing.summary(before, tracing.snapshot(), batches)}",
+          file=sys.stderr)
     print(cm.summary())
     if args.plot:
         cm.plot(args.plot)

@@ -86,7 +86,9 @@ def parse_args(argv=None):
                    help="recompute each block's activations in the backward")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 3-5 of the "
-                        "first epoch here")
+                        "first epoch here; it holds the medmamba.* host "
+                        "spans and, on the card, the step markers' kernels "
+                        "(medmamba_mark_step_*)")
     p.add_argument("--log_every", type=int, default=1,
                    help="per-step progress line frequency (0 disables)")
     p.add_argument("--device", type=str, default="cuda",
@@ -151,6 +153,7 @@ def _train(args, device, mesh):
                                                   compile_train_step,
                                                   eval_step,
                                                   make_optimizer, train_step)
+    from medmamba_tpu_torch.utils import tracing
 
     pi, pc = process_slice(mesh)
     group = data_group(mesh)
@@ -291,6 +294,7 @@ def _train(args, device, mesh):
                      and main_rank)
         prof = (_step_profiler(args.profile_dir, device) if profiling
                 else contextlib.nullcontext())
+        before = tracing.snapshot()
         with prof:
             for images, labels in on_device(train_loader.epoch(epoch)):
                 loss = run_train(images, labels)
@@ -314,6 +318,8 @@ def _train(args, device, mesh):
             step_losses.append(lval)
         if args.log_every and main_rank:
             print()
+        log.info("Epoch %d train %s", epoch,
+                 tracing.summary(before, tracing.snapshot(), nsteps))
         if sched is not None:
             sched.step()
         train_time = time.time() - t0

@@ -18,6 +18,8 @@ from typing import Callable, Iterator, Tuple
 import numpy as np
 import torch
 
+from medmamba_tpu_torch.utils import tracing
+
 
 def device_prefetch(iterator: Iterator, put_fn: Callable, depth: int = 2,
                     device=None):
@@ -31,28 +33,31 @@ def device_prefetch(iterator: Iterator, put_fn: Callable, depth: int = 2,
     marked as used by that stream, so their memory is not reused while the
     step still reads them. A graphed step's copy into its static inputs
     then reads finished data. Otherwise ``put_fn`` runs where it is called,
-    as in the JAX package.
+    as in the JAX package. The host time of each ``put`` and each hand-over
+    is the span ``prefetch.put`` or ``prefetch.hand`` (``utils/tracing.py``).
     """
     cuda = device is not None and torch.device(device).type == "cuda"
     side = torch.cuda.Stream(device) if cuda else None
 
     def put(item):
-        if not cuda:
-            return put_fn(*item), None
-        with torch.cuda.stream(side):
-            out = put_fn(*item)
-        done = torch.cuda.Event()
-        done.record(side)
-        return out, done
+        with tracing.span("prefetch.put"):
+            if not cuda:
+                return put_fn(*item), None
+            with torch.cuda.stream(side):
+                out = put_fn(*item)
+            done = torch.cuda.Event()
+            done.record(side)
+            return out, done
 
     def hand(entry):
-        out, done = entry
-        if done is not None:
-            stream = torch.cuda.current_stream(device)
-            stream.wait_event(done)
-            for t in out:
-                t.record_stream(stream)
-        return out
+        with tracing.span("prefetch.hand"):
+            out, done = entry
+            if done is not None:
+                stream = torch.cuda.current_stream(device)
+                stream.wait_event(done)
+                for t in out:
+                    t.record_stream(stream)
+            return out
 
     buf = collections.deque()
     for item in iterator:

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from medmamba_tpu_torch.data.transforms import resize
-from medmamba_tpu_torch.utils import graphs
+from medmamba_tpu_torch.utils import graphs, tracing
 
 # matplotlib's "jet" (matplotlib/_cm.py: _jet_data), as (x, y0, y1) segments
 _JET = {
@@ -185,6 +185,7 @@ class _CamBody:
 
     def __call__(self, images: torch.Tensor, target: Optional[torch.Tensor],
                  *subs: torch.Tensor):
+        tracing.mark("cam.begin", images)
         self.subs = dict(zip(self.sub_keys, subs))
         try:
             with torch.enable_grad():
@@ -208,6 +209,7 @@ class _CamBody:
                 cam = resize(cam.float()[..., None], self.size)[..., 0]
                 cams.append(_scale(cam))
             cam = _scale(torch.stack(cams, 1).mean(1))
+        tracing.mark("cam.end", cam)
         return cam, logits.detach()
 
 

@@ -15,6 +15,11 @@ choices (train.py:187-199):
 One step: on-device preprocessing (flip + rotation when augmenting, resize,
 normalisation) -> forward in train mode -> loss -> backward -> AdamW. The
 random draws (augmentation, DropPath) come from the caller's generator.
+On the card each phase opens with a marker kernel (``utils/tracing.py:
+mark``): ``step.begin``, ``step.forward``, ``step.backward``,
+``step.exchange`` (under a data group), ``step.optimizer``, ``step.end``;
+``eval_step`` and ``predict`` are bracketed the same way. Captured into a
+graph, the markers show a replay's phases on the card's timeline.
 
 Data parallelism (``parallel/mesh.py``): under an active mesh each rank
 steps on its contiguous slice of the global batch and the step computes
@@ -63,7 +68,7 @@ import torch.nn.functional as F
 from medmamba_tpu_torch.data.transforms import preprocess, preprocess_imagenet
 from medmamba_tpu_torch.parallel.mesh import (data_group, model_group,
                                               model_shard)
-from medmamba_tpu_torch.utils import graphs
+from medmamba_tpu_torch.utils import graphs, tracing
 
 
 # the devices whose AdamW is ``capturable`` (its step counters on the
@@ -153,18 +158,24 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     the (global batch's) loss as a device scalar (no host sync)."""
     model.train()
     group = data_group()
+    tracing.mark("step.begin", images_u8)
     rows = rank_rows(images_u8.shape[0], group)
     x = preprocess(images_u8, size=image_size, augment=augment,
                    generator=generator, rows=rows)
+    tracing.mark("step.forward", x)
     logits = model(x, labels >= 0, generator=generator, rows=rows)
     loss = cross_entropy(logits, labels, group)
     opt.zero_grad(set_to_none=True)
+    tracing.mark("step.backward", loss)
     loss.backward()
     loss = loss.detach()
     if group is not None:
+        tracing.mark("step.exchange", loss)
         loss = sum_grads([p for g in opt.param_groups for p in g["params"]],
                          loss, group)
+    tracing.mark("step.optimizer", loss)
     opt.step()
+    tracing.mark("step.end", loss)
     return loss
 
 
@@ -176,11 +187,13 @@ def eval_step(model: torch.nn.Module, images_u8: torch.Tensor,
     batch, in eval mode; both stay on the device. Under a mesh the count is
     summed over the data axis (the logits stay this rank's)."""
     model.eval()
+    tracing.mark("eval.begin", images_u8)
     logits = model(preprocess(images_u8, size=image_size))
     correct = ((logits.argmax(-1) == labels) & (labels >= 0)).sum()
     group = data_group()
     if group is not None:
         dist.all_reduce(correct, group=group)
+    tracing.mark("eval.end", correct)
     return correct, logits
 
 
@@ -193,9 +206,13 @@ def predict(model: torch.nn.Module, images_u8: torch.Tensor, *,
     ``imagenet_preproc`` the batch is preprocessed as the reference
     ConfusionMatrix script does (``preprocess_imagenet``)."""
     model.eval()
+    tracing.mark("forward.begin", images_u8)
     prep = preprocess_imagenet if imagenet_preproc else preprocess
     x = prep(images_u8, size=image_size)
-    return torch.softmax(model(x), dim=-1), x
+    tracing.mark("forward.model", x)
+    probs = torch.softmax(model(x), dim=-1)
+    tracing.mark("forward.end", probs)
+    return probs, x
 
 
 def _snapshot(model: torch.nn.Module,

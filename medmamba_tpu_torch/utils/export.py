@@ -38,7 +38,7 @@ import torch
 
 from medmamba_tpu_torch.data.transforms import preprocess
 from medmamba_tpu_torch.ops import scan_op  # noqa: F401  (registers the ops)
-from medmamba_tpu_torch.utils import graphs
+from medmamba_tpu_torch.utils import graphs, tracing
 from medmamba_tpu_torch.utils.device import resolve_device
 
 # the batch a symbolic-batch artifact is traced at: torch specialises a
@@ -114,8 +114,11 @@ def compile_module(module: torch.nn.Module) -> graphs.CompiledStep:
     the eager call."""
     def capture(images):
         def forward(x):
+            tracing.mark("exported.begin", x)
             with torch.no_grad():
-                return module(x)
+                out = module(x)
+            tracing.mark("exported.end", out)
+            return out
         return graphs.Graph(forward, (images,), label="exported forward",
                             model=module)
     return graphs.CompiledStep("exported", capture, maxsize=EXPORT_GRAPHS)

@@ -34,6 +34,12 @@ function into one CUDA graph per signature and replays it:
   tensor attribute, optimizer-state tensor or tensor learning rate was
   replaced since capture (``opt.load_state_dict``, ``model.to(other)``),
   rather than updated in place.
+* **Tracing** (``utils/tracing.py``): a call is the span ``graph.call``
+  (the signature, the lookup, the capture or the replay) and counts
+  ``graph.replays``, ``graph.captures`` and ``graph.evictions``; a capture
+  is the span ``graph.capture`` and sets the gauge ``graph.nodes.<label>``,
+  its graph's node count; a replay's parts are the spans ``graph.guard``,
+  ``graph.copy_in`` and ``graph.launch``.
 
 Random draws from a ``torch.Generator`` inside the step come from the
 generators registered with the graph (``CUDAGraph.register_generator_state``;
@@ -43,7 +49,7 @@ advances it as the eager step does.
 """
 from __future__ import annotations
 
-import time
+import ctypes
 from typing import Callable, Dict, Iterable, Optional, Sequence
 
 import torch
@@ -51,6 +57,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from medmamba_tpu_torch.ops import rotate, scan_cuda, scan_hillis
 from medmamba_tpu_torch.ops import selective_scan as ss
+from medmamba_tpu_torch.utils import tracing
 
 WARMUP = 2
 # the kernel wrappers' launch counters: (module, attribute)
@@ -149,6 +156,20 @@ class StateGuard:
                     "compile the step again")
 
 
+def node_count(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a graph captured with ``keep_graph=True``
+    (``cuGraphGetNodes`` of ``libcuda``)."""
+    get = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.POINTER(ctypes.c_size_t)]
+    get.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    rc = get(graph.raw_cuda_graph(), None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed ({rc})")
+    return n.value
+
+
 class _LastOp(TorchDispatchMode):
     """Records the name of the last operator dispatched, for the error of a
     capture that fails."""
@@ -169,8 +190,9 @@ class Graph:
     ``restore()`` (optional) is called after the capture to undo the
     warm-up; ``generators`` are registered with the graph. After capture,
     ``counts`` holds the launches a replay adds, ``capture_s`` the seconds
-    of warm-up and capture, and ``pool_bytes`` the device memory the
-    capture's private pool took at its peak."""
+    of warm-up, capture and restore (the ``graph.capture`` span), and
+    ``pool_bytes`` the device memory the capture's private pool took at its
+    peak."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], *,
                  label: str, model: torch.nn.Module,
@@ -188,43 +210,50 @@ class Graph:
                 f"{label}: this torch ({torch.__version__}) cannot register "
                 "a generator with a CUDA graph "
                 "(CUDAGraph.register_generator_state)")
-        t0 = time.perf_counter()
-        self.static = [x.to(device, copy=True) for x in inputs]
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        before = read_counts()
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn(*self.static)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
-        base = torch.cuda.memory_allocated(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        last = _LastOp()
-        try:
-            with torch.cuda.graph(self.graph), last:
-                self.outputs, self.counts = counted(fn, *self.static)
-        except Exception as e:
-            raise RuntimeError(f"capturing the {label} failed at "
-                               f"{last.name}: {e}") from e
-        finally:
-            add_counts({k: before[k] - v for k, v in read_counts().items()})
-        if restore is not None:
-            restore()
-        torch.cuda.synchronize(device)
-        self.pool_bytes = torch.cuda.max_memory_allocated(device) - base
-        self.capture_s = time.perf_counter() - t0
+        with tracing.span("graph.capture") as timed:
+            self.static = [x.to(device, copy=True) for x in inputs]
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            before = read_counts()
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    fn(*self.static)
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+            # the graph kept after capture, so its nodes can be counted
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for g in generators:
+                self.graph.register_generator_state(g)
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            last = _LastOp()
+            try:
+                with torch.cuda.graph(self.graph), last:
+                    self.outputs, self.counts = counted(fn, *self.static)
+            except Exception as e:
+                raise RuntimeError(f"capturing the {label} failed at "
+                                   f"{last.name}: {e}") from e
+            finally:
+                add_counts({k: before[k] - v
+                            for k, v in read_counts().items()})
+            self.graph.instantiate()
+            if restore is not None:
+                restore()
+            torch.cuda.synchronize(device)
+            self.pool_bytes = torch.cuda.max_memory_allocated(device) - base
+        self.capture_s = timed.seconds
+        tracing.gauge(f"graph.nodes.{label}", node_count(self.graph))
         self.guard = StateGuard(model, opt)
 
     def __call__(self, *inputs: torch.Tensor):
-        self.guard.check()
-        for s, x in zip(self.static, inputs):
-            if x is not s:
-                s.copy_(x, non_blocking=True)
-        self.graph.replay()
+        with tracing.span("graph.guard"):
+            self.guard.check()
+        with tracing.span("graph.copy_in"):
+            for s, x in zip(self.static, inputs):
+                if x is not s:
+                    s.copy_(x, non_blocking=True)
+        with tracing.span("graph.launch"):
+            self.graph.replay()
         add_counts(self.counts)
         return self.outputs
 
@@ -257,15 +286,20 @@ class CompiledStep:
         self.graphs: Dict[tuple, Graph] = {}
 
     def __call__(self, *inputs: torch.Tensor, **static):
-        key = cache_key(self.name, inputs, static)
-        graph = self.graphs.pop(key, None)
-        if graph is None:
-            if self.maxsize is not None and len(self.graphs) >= self.maxsize:
-                self.graphs.pop(next(iter(self.graphs))).free()
-                torch.cuda.empty_cache()
-            graph = self._capture(*inputs, **static)
-        self.graphs[key] = graph
-        return graph(*inputs)
+        with tracing.span("graph.call"):
+            key = cache_key(self.name, inputs, static)
+            graph = self.graphs.pop(key, None)
+            if graph is None:
+                if (self.maxsize is not None
+                        and len(self.graphs) >= self.maxsize):
+                    self.graphs.pop(next(iter(self.graphs))).free()
+                    torch.cuda.empty_cache()
+                    tracing.count("graph.evictions")
+                graph = self._capture(*inputs, **static)
+                tracing.count("graph.captures")
+            self.graphs[key] = graph
+            tracing.count("graph.replays")
+            return graph(*inputs)
 
     def free(self) -> None:
         for graph in self.graphs.values():

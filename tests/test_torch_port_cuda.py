@@ -17,7 +17,10 @@ several cards, one NCCL rank a card: the graphed steps against the eager
 ones under the group, and ``cli.train`` against one process), and tensor
 parallelism (``-k across_cards`` on four cards: the graphed TP step of
 medmamba_t on a 2x2 and a 1x4 mesh against the eager one, its launches
-and rows, and its first loss against one process).
+and rows, and its first loss against one process), and tracing (``-k tracing``: the
+step markers of a replayed train step and forward in order on the card,
+K2 inside the backward phase, the host spans on the profiler's clock
+before each replay's first marker, the graph counters and node gauge).
 Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
@@ -1758,3 +1761,103 @@ def test_tensor_parallel_graphed_steps_across_cards(cuda, tmp_path,
             assert c["scan_cuda.BWD_LAUNCHES"] == 20 * steps, (run, c)
         assert g["rows"] == [rows] * (40 * steps)
         assert abs(g["eager"]["losses"][0].item() - want) <= 1e-4 * abs(want)
+
+
+# --- tracing (utils/tracing.py): markers, spans and counters on the card --
+
+
+def _traced_replays(step, *args, **static):
+    """Two replays of a captured step under the profiler: (marker names
+    with their start and end, K2 kernels, the ``medmamba.*`` events with
+    their device types, the ``medmamba.graph.launch`` spans' starts), the
+    times in µs on the profiler's one clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from medmamba_tpu_torch.utils import tracing
+
+    kernels = {tracing.kernel_name(m): m for m in tracing.MARKERS}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step(*args, **static)
+        torch.cuda.synchronize()
+    events = sorted(prof.events(), key=lambda e: e.time_range.start)
+    cuda_type = torch.autograd.DeviceType.CUDA
+    marks = [(kernels[e.name], e.time_range.start, e.time_range.end)
+             for e in events
+             if e.device_type == cuda_type and e.name in kernels]
+    k2 = [(e.time_range.start, e.time_range.end) for e in events
+          if e.device_type == cuda_type and "scan_bwd" in e.name]
+    spans = [(e.name, e.device_type) for e in events
+             if e.name.startswith("medmamba.")]
+    launches = [e.time_range.start for e in events
+                if e.name == "medmamba.graph.launch"]
+    return marks, k2, spans, launches
+
+
+def test_tracing_markers_of_a_replayed_train_step_in_order(cuda):
+    """Two replays of the graphed train step: each brings its six markers
+    less ``step.exchange`` (no data group) in order; every K2 kernel runs
+    between ``step.backward`` and ``step.optimizer``; the ``medmamba.*``
+    spans are host events; each replay's ``graph.launch`` span starts
+    before its ``step.begin`` marker on the card (one clock); the
+    counters count one capture and three replays, and the node gauge
+    holds the graph's nodes."""
+    from medmamba_tpu_torch.train import trainer
+    from medmamba_tpu_torch.utils import tracing
+
+    model = _graph_model(cuda)
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-3, True)
+    step = trainer.compile_train_step(
+        model, opt, generator=torch.Generator(device=cuda).manual_seed(0))
+    x, y = _frames(cuda, 2), torch.tensor([0, 1], device=cuda)
+    before = tracing.snapshot()
+    step(x, y, augment=True, image_size=64)
+    marks, k2, spans, launches = _traced_replays(step, x, y, augment=True,
+                                                 image_size=64)
+    after = tracing.snapshot()
+    order = ["step.begin", "step.forward", "step.backward",
+             "step.optimizer", "step.end"]
+    assert [m for m, _, _ in marks] == order * 2
+    for r in range(2):
+        start = {m: s for m, s, _ in marks[5 * r:5 * r + 5]}
+        inside = [(s, e) for s, e in k2
+                  if start["step.begin"] <= s < start["step.end"]]
+        assert len(inside) == 2 * 6      # walk and reduction, 6 launches
+        assert all(start["step.backward"] <= s and e <= start[
+            "step.optimizer"] for s, e in inside)
+        assert launches[r] < start["step.begin"]
+    assert len(k2) == 2 * 2 * 6
+    assert spans and all(d != torch.autograd.DeviceType.CUDA
+                         for _, d in spans)
+    names = {n for n, _ in spans}
+    assert {"medmamba.graph.call", "medmamba.graph.guard",
+            "medmamba.graph.copy_in", "medmamba.graph.launch"} <= names
+    counters = {k: after["counters"].get(k, 0) - before["counters"].get(k, 0)
+                for k in ("graph.captures", "graph.replays")}
+    assert counters == {"graph.captures": 1, "graph.replays": 3}
+    assert after["counters"]["graph.nodes.train step"] > 100
+    step.free()
+
+
+def test_tracing_markers_of_a_replayed_forward_in_order(cuda):
+    """Two replays of the graphed forward: ``forward.begin``,
+    ``forward.model``, ``forward.end`` each, after its ``graph.launch``
+    span; an eager CUDA ``eval_step`` launches its two markers too."""
+    from medmamba_tpu_torch.train import trainer
+
+    model = _graph_model(cuda)
+    forward = trainer.compile_forward(model)
+    x = _frames(cuda, 3)
+    forward(x, image_size=64)
+    marks, k2, spans, launches = _traced_replays(forward, x, image_size=64)
+    assert [m for m, _, _ in marks] == ["forward.begin", "forward.model",
+                                        "forward.end"] * 2
+    assert not k2
+    assert launches[0] < marks[0][1] and launches[1] < marks[3][1]
+    forward.free()
+    marks, _, _, _ = _traced_replays(
+        lambda: trainer.eval_step(model, x, torch.tensor([0, 1, 2],
+                                                         device=cuda),
+                                  image_size=64))
+    assert [m for m, _, _ in marks] == ["eval.begin", "eval.end"] * 2
