@@ -49,6 +49,7 @@ from medmamba_tpu_torch.ops.selective_scan import selective_scan
 from medmamba_tpu_torch.parallel.mesh import (all_reduce_sum, copy_to_model,
                                               data_group, from_shards,
                                               model_shard, shard_group)
+from medmamba_tpu_torch.utils import tracing
 
 # ---------------------------------------------------------------------------
 # Initializers (the distributions of medmamba_tpu/models/vssm.py:46-94), all
@@ -118,6 +119,99 @@ def _whole(p: torch.Tensor) -> torch.Tensor:
     if shard is None:
         return p
     return from_shards(p, shard_group(shard), shard[0])
+
+
+def _bmm_float32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.bmm(a, b)`` with float32 products: bfloat16 operands keep
+    their products in float32 (``out_dtype`` on the card, a float32 GEMM of
+    the same values on the CPU, which has no such kernel)."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    if a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+class _SharedWeightBmm(torch.autograd.Function):
+    """``w @ x[i]`` for every matrix of a batch ``x``: one batched GEMM
+    whose (m, k) weight has batch stride 0, so neither operand is copied.
+    The weight's gradient sums the products ``g[i] @ x[i]^T``, each kept
+    in float32 and rounded once, after the sum: exact up to the order of
+    summation, as one GEMM over the whole batch is, and with as many
+    thread blocks as the batch has matrices."""
+
+    @staticmethod
+    def forward(ctx, w, x):
+        ctx.save_for_backward(w, x)
+        return torch.bmm(w.expand(x.shape[0], -1, -1), x)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, x = ctx.saved_tensors
+        gw = gx = None
+        if ctx.needs_input_grad[0]:
+            gw = _bmm_float32(g, x.transpose(1, 2)).sum(0)
+        if ctx.needs_input_grad[1]:
+            gx = torch.bmm(w.t().expand(g.shape[0], -1, -1), g)
+        return gw, gx
+
+
+def _shared_bmm(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(m, k) @ (b, k, n) -> (b, m, n) without copying ``x``; a plain
+    ``torch.bmm`` where no gradient is taken (``torch.export`` traces
+    that)."""
+    if torch.is_grad_enabled() and (w.requires_grad or x.requires_grad):
+        return _SharedWeightBmm.apply(w, x)
+    return torch.bmm(w.expand(x.shape[0], -1, -1), x)
+
+
+def _pair_blocks(w: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:
+    """(4, p, q) per-direction matrices -> (2, 2p, 2q): each scan pair's
+    two directions (0, 1 and 2, 3) as one block-diagonal matrix."""
+    _, p, q = w.shape
+    return (w.reshape(2, 2, p, 1, q) * eye.reshape(1, 2, 1, 2, 1)
+            ).reshape(2, 2 * p, 2 * q)
+
+
+def ss2d_projections(u: torch.Tensor, x_proj_weight: torch.Tensor,
+                     dt_projs_weight: torch.Tensor, d_state: int):
+    """SS2D's two low-rank projections, on the scan's own layout.
+
+    ``u`` (b, 2D, L) is directions 0 and 1 (``cross_scan_fwd``), which
+    directions 2 and 3 read in reverse; ``x_proj_weight`` (4, r + 2n, D)
+    and ``dt_projs_weight`` (4, D, r) are in ``u``'s dtype. Returns, for
+    pair 0 (directions 0, 1) and pair 1 (2, 3), ``(delta, B, C)``: delta
+    (b, 2D, L) and B, C (b, 2, n, L), contiguous, as ``selective_scan``
+    reads them.
+
+    Each GEMM runs on ``u``'s layout, L contiguous, one matrix a batch row
+    (``_shared_bmm``): x_dbl (b, 4 c8, L) = W @ u, its rows pair by pair
+    the two directions' dt rows, then B rows, then C rows, with W (4 c8, 2D)
+    block-diagonal over each pair's directions; then delta = W_dt @ dt
+    rows, pair by pair. The dt rank r is zero-padded to r8, the next
+    multiple of 8 (x_proj_weight's dt rows and dt_projs_weight's last
+    axis), so every operand's leading dimension is a multiple of 8
+    elements; the padded rows of x_dbl meet zero columns of W_dt, so the
+    result is unchanged and no gradient reaches a padded slot. Only B and C
+    are copied, to their contiguous layout.
+    """
+    b, _, l = u.shape
+    n = d_state
+    r = dt_projs_weight.shape[-1]
+    r8 = -(-r // 8) * 8
+    eye = torch.eye(2, dtype=u.dtype, device=u.device)
+    w_dt, w_b, w_c = x_proj_weight.split([r, n, n], dim=1)
+    if r8 != r:
+        tracing.count("ss2d.proj_padded")
+        w_dt = F.pad(w_dt, (0, 0, 0, r8 - r))
+        dt_projs_weight = F.pad(dt_projs_weight, (0, r8 - r))
+    w_x = torch.cat([_pair_blocks(w, eye) for w in (w_dt, w_b, w_c)], 1)
+    x_dbl = _shared_bmm(w_x.reshape(-1, u.shape[1]), u)
+    w_dt = _pair_blocks(dt_projs_weight, eye).unbind(0)   # 2 x (2D, 2 r8)
+    parts = x_dbl.split([2 * r8, 2 * n, 2 * n] * 2, dim=1)
+    return [(_shared_bmm(w, dts), bs.reshape(b, 2, n, l).contiguous(),
+             cs.reshape(b, 2, n, l).contiguous())
+            for w, (dts, bs, cs) in zip(w_dt, (parts[:3], parts[3:]))]
 
 
 def _conv(layer: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -396,34 +490,26 @@ class SS2D(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, d_model)
         b, h, w, _ = x.shape
         l = h * w
-        d_inner, n, r = self.d_inner, self.d_state, self.dt_rank
+        d_inner, n = self.d_inner, self.d_state
         dt_ = self.dtype
 
         x, z = _linear(self.in_proj, x, dt_).chunk(2, dim=-1)
         x = F.silu(_conv(self.conv2d, x.permute(0, 3, 1, 2), dt_))
-        xs = cross_scan_fwd(x.permute(0, 2, 3, 1))          # (B, 2, D, L)
+        u = cross_scan_fwd(x.permute(0, 2, 3, 1)).reshape(b, 2 * d_inner, l)
 
         # weights are laid out [pair j][direction k]: pair 0 (directions 0, 1)
         # scans forward, pair 1 (directions 2, 3) the same data in reverse
-        wp4 = _whole(self.x_proj_weight).to(dt_).reshape(2, 2, r + 2 * n,
-                                                         d_inner)
-        x_dbl = torch.einsum("bkdl,jkcd->bjkcl", xs, wp4)
-        dts4, Bs4, Cs4 = torch.split(x_dbl, [r, n, n], dim=3)
-        wdt4 = _whole(self.dt_projs_weight).to(dt_).reshape(2, 2, d_inner,
-                                                            r)
-        dts4 = torch.einsum("bjkrl,jkdr->bjkdl", dts4, wdt4)
-
-        u = xs.reshape(b, 2 * d_inner, l)
+        proj = ss2d_projections(u, _whole(self.x_proj_weight).to(dt_),
+                                _whole(self.dt_projs_weight).to(dt_), n)
         As = -torch.exp(_whole(self.A_logs).float()).reshape(4, d_inner, n)
         Ds = _whole(self.Ds).float().reshape(4, d_inner)
         bias = self.dt_projs_bias.float()
 
         def scan_pair(j: int, rev: bool) -> torch.Tensor:
             ks = slice(2 * j, 2 * j + 2)
+            delta, bs, cs = proj[j]
             y = selective_scan(
-                u, dts4[:, j].reshape(b, 2 * d_inner, l),
-                As[ks].reshape(2 * d_inner, n),
-                Bs4[:, j].contiguous(), Cs4[:, j].contiguous(),
+                u, delta, As[ks].reshape(2 * d_inner, n), bs, cs,
                 Ds[ks].reshape(-1), delta_bias=bias[ks].reshape(-1),
                 delta_softplus=True, impl=self.scan_impl,
                 reverse_dirs=(rev, rev), out_dtype=dt_)

@@ -28,7 +28,8 @@ function into one CUDA graph per signature and replays it:
   graph's ``counts``, the warm-up's and the capture's own are taken back
   out (they are the compile step's, as ``jax.jit``'s tracing is), and each
   replay adds ``counts``: a replayed step counts the launches an eager step
-  would.
+  would. The step counters of ``utils/tracing.py`` (``STEP_COUNTERS``)
+  are kept and added the same way (``step_counts``).
 * **The state guard** (:class:`StateGuard`): a graph reads and writes the
   tensors it was captured with. A replay raises if a parameter, buffer,
   tensor attribute, optimizer-state tensor or tensor learning rate was
@@ -190,9 +191,9 @@ class Graph:
     ``restore()`` (optional) is called after the capture to undo the
     warm-up; ``generators`` are registered with the graph. After capture,
     ``counts`` holds the launches a replay adds, ``capture_s`` the seconds
-    of warm-up, capture and restore (the ``graph.capture`` span), and
-    ``pool_bytes`` the device memory the capture's private pool took at its
-    peak."""
+    of warm-up, capture and restore (the ``graph.capture`` span),
+    ``step_counts`` the step counters a replay adds, and ``pool_bytes``
+    the device memory the capture's private pool took at its peak."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], *,
                  label: str, model: torch.nn.Module,
@@ -214,7 +215,7 @@ class Graph:
             self.static = [x.to(device, copy=True) for x in inputs]
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
-            before = read_counts()
+            before, steps = read_counts(), tracing.step_counts()
             with torch.cuda.stream(side):
                 for _ in range(WARMUP):
                     fn(*self.static)
@@ -229,13 +230,18 @@ class Graph:
             last = _LastOp()
             try:
                 with torch.cuda.graph(self.graph), last:
+                    start = tracing.step_counts()
                     self.outputs, self.counts = counted(fn, *self.static)
+                    self.step_counts = {k: v - start[k] for k, v in
+                                        tracing.step_counts().items()}
             except Exception as e:
                 raise RuntimeError(f"capturing the {label} failed at "
                                    f"{last.name}: {e}") from e
             finally:
                 add_counts({k: before[k] - v
                             for k, v in read_counts().items()})
+                tracing.add_step_counts({k: steps[k] - v for k, v in
+                                         tracing.step_counts().items()})
             self.graph.instantiate()
             if restore is not None:
                 restore()
@@ -255,6 +261,7 @@ class Graph:
         with tracing.span("graph.launch"):
             self.graph.replay()
         add_counts(self.counts)
+        tracing.add_step_counts(self.step_counts)
         return self.outputs
 
     def free(self) -> None:

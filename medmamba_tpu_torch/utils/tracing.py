@@ -11,7 +11,9 @@
   name. The kernel wrappers' five launch counters stay where they are
   (``utils/graphs.py: COUNTERS``); :func:`snapshot` returns them with the
   span totals and these counters in one dict, :func:`reset` clears the
-  totals and the counters.
+  totals and the counters. A graph replay adds the counts of its capture
+  to the step counters (:data:`STEP_COUNTERS`), as it does to the launch
+  counters.
 * **Markers** (:func:`mark`): a one-thread kernel with no memory traffic,
   launched on the current stream of a CUDA tensor. Inside a captured step
   it becomes a node of the graph, so the phases of a replay, which runs
@@ -48,6 +50,13 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 
 _spans: Dict[str, list] = {}        # name -> [count, seconds]
 _counters: Dict[str, float] = {}
+# counters of work a step does, counted in Python where the work is set
+# up, which a graph replay does not run: a captured graph keeps its
+# capture's counts of these and adds them at each replay, as
+# ``utils/graphs.py`` does with the launch counters. ``ss2d.proj_padded``:
+# SS2D forwards whose dt rank was padded (``models/vssm.py:
+# ss2d_projections``)
+STEP_COUNTERS = ("ss2d.proj_padded",)
 
 
 class span:
@@ -91,6 +100,18 @@ def gauge(name: str, value: float) -> None:
     _counters[name] = value
 
 
+def step_counts() -> Dict[str, float]:
+    """The step counters (:data:`STEP_COUNTERS`) as they are now."""
+    return {n: _counters.get(n, 0) for n in STEP_COUNTERS}
+
+
+def add_step_counts(delta: Dict[str, float]) -> None:
+    """Add ``delta``, a change of :func:`step_counts`, to the counters."""
+    for name, n in delta.items():
+        if n:
+            count(name, n)
+
+
 def snapshot() -> dict:
     """``{"spans": {name: {"count", "s"}}, "counters": {...}, "launches":
     graphs.read_counts()}``, copies of the totals as they are now."""
@@ -110,8 +131,9 @@ def reset() -> None:
 def summary(before: dict, after: dict, steps: int) -> str:
     """The operator's line for what ran between two snapshots: graph
     replays, captures and evictions, host ms a replay in ``graph.call``
-    spans (less the captures' ``graph.capture``), and, where batches were
-    prefetched, host ms a step in the prefetch's spans."""
+    spans (less the captures' ``graph.capture``), where SS2D padded its
+    projections their count a step (``ss2d.proj_padded``), and, where
+    batches were prefetched, host ms a step in the prefetch's spans."""
     def delta(name, key):
         return (after["spans"].get(name, {}).get(key, 0)
                 - before["spans"].get(name, {}).get(key, 0))
@@ -126,6 +148,9 @@ def summary(before: dict, after: dict, steps: int) -> str:
             f"{counter('graph.evictions')} evictions, "
             + (f"{1e3 * call / replays:.3f}" if replays else "-")
             + " host ms a replay")
+    padded = counter("ss2d.proj_padded")
+    if steps and padded:
+        line += f"; ss2d.proj_padded {padded / steps:g} a step"
     prefetch = ("prefetch.put", "prefetch.hand")
     if steps and any(delta(n, "count") for n in prefetch):
         host = sum(delta(n, "s") for n in prefetch)

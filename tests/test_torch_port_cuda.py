@@ -20,8 +20,10 @@ medmamba_t on a 2x2 and a 1x4 mesh against the eager one, its launches
 and rows, and its first loss against one process), and tracing (``-k tracing``: the
 step markers of a replayed train step and forward in order on the card,
 K2 inside the backward phase, the host spans on the profiler's clock
-before each replay's first marker, the graph counters and node gauge).
-Marked ``cuda``: each test skips where
+before each replay's first marker, the graph counters and node gauge),
+and SS2D's projections (``-k proj``: no WMMA fallback GEMM at the aligned
+stage shapes, the graphed medmamba_t step's, ``ss2d.proj_padded`` per
+forward and replay). Marked ``cuda``: each test skips where
 torch sees no GPU. On a machine with one: ``python -m pytest --noconftest
 tests/test_torch_port_cuda.py -q``. Tolerances: float32 outputs 1e-4 (the two
 differ only in the order of float32 operations and fused multiply-adds;
@@ -1861,3 +1863,117 @@ def test_tracing_markers_of_a_replayed_forward_in_order(cuda):
                                                          device=cuda),
                                   image_size=64))
     assert [m for m, _, _ in marks] == ["eval.begin", "eval.end"] * 2
+
+
+def _device_kernels(fn, reps=2):
+    """{kernel: device ms a call} of ``fn`` under the profiler, after one
+    call outside it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+@pytest.mark.parametrize("d_inner,l", [(96, 3136), (192, 784), (128, 3136)])
+def test_proj_gemms_leave_the_wmma_fallback_at_aligned_shapes(cuda, d_inner,
+                                                               l):
+    """SS2D's projections at medmamba_t's stages 0 and 1 and medmamba_b's
+    stage 0 (dt rank 3, 6, 4, padded to 8; L a multiple of 8), batch 64,
+    bf16, forward and backward: no kernel cuBLAS picks is a WMMA fallback,
+    and the outputs and gradients are the einsum formulation's within one
+    bf16 ulp of each tensor's largest entry (2^-7 of it: the two round
+    sums taken in different orders)."""
+    from test_torch_port_ss2d_proj import einsum_projections
+
+    r = -(-(d_inner // 2) // 16)
+    gen = torch.Generator().manual_seed(0)
+    ops = [(torch.randn(*s, generator=gen) * f).to(cuda, torch.bfloat16)
+           for s, f in (((64, 2 * d_inner, l), 1.0),
+                        ((4, r + 32, d_inner), d_inner ** -0.5),
+                        ((4, d_inner, r), r ** -0.5))]
+    cot = None
+
+    def run(fn):
+        nonlocal cot
+        leaves = [t.clone().requires_grad_() for t in ops]
+        outs = [t for pair in fn(*leaves, 16) for t in pair]
+        if cot is None:
+            cot = [torch.randn(t.shape, generator=gen).to(t) for t in outs]
+        grads = torch.autograd.grad(outs, leaves, cot)
+        return [t.detach() for t in outs] + list(grads)
+    kernels = _device_kernels(lambda: run(tv.ss2d_projections))
+    assert not [k for k in kernels if "wmma" in k], kernels
+    for a, b in zip(run(tv.ss2d_projections), run(einsum_projections)):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= \
+            2.0 ** -7 * scale
+
+
+def test_proj_graphed_medmamba_t_step_leaves_the_wmma_fallback(cuda):
+    """One replay of the graphed bf16 train step of medmamba_t at 224^2,
+    batch 64: the WMMA fallback GEMMs that took 16.6 ms a step on the
+    einsum formulation are gone but for the stages whose L (196, 49) is
+    not a multiple of 8, where every GEMM on the scan's layout has an
+    unaligned leading dimension: under 1 ms a step in all, and none among
+    the step's ten largest device operations."""
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+
+    model = create_model("T", 9, dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-4, True)
+    step = trainer.compile_train_step(
+        model, opt, generator=torch.Generator(device=cuda).manual_seed(0))
+    x = _frames(cuda, 64, size=224)
+    y = torch.arange(64, device=cuda) % 9
+    kernels = _device_kernels(
+        lambda: step(x, y, augment=True, image_size=224), reps=1)
+    wmma = {k: v for k, v in kernels.items() if "wmma" in k}
+    top = sorted(kernels, key=kernels.get, reverse=True)[:10]
+    print("wmma ms a step:", sum(wmma.values()), wmma)
+    assert sum(wmma.values()) < 1.0, wmma
+    assert not [k for k in top if "wmma" in k], top
+    step.free()
+
+
+@pytest.mark.parametrize("size,padded", [("T", 8), ("B", 2)])
+def test_proj_padded_counts_each_forward_and_replay(cuda, size, padded):
+    """``ss2d.proj_padded`` adds 8 a medmamba_t forward and 2 a medmamba_b
+    forward, eager or replayed from a graph (the warm-up and the capture
+    taken back out), in the forward and in the train step."""
+    from medmamba_tpu_torch.models.registry import create_model
+    from medmamba_tpu_torch.train import trainer
+    from medmamba_tpu_torch.utils import tracing
+
+    model = create_model(size, 9, dtype=torch.bfloat16, device=cuda,
+                         generator=torch.Generator().manual_seed(0))
+
+    def counted(fn):
+        before = tracing.step_counts()["ss2d.proj_padded"]
+        fn()
+        return tracing.step_counts()["ss2d.proj_padded"] - before
+    x = _frames(cuda, 2)
+    assert counted(lambda: trainer.predict(model, x, image_size=64)) == \
+        padded
+    forward = trainer.compile_forward(model)
+    assert counted(lambda: [forward(x, image_size=64)
+                            for _ in range(3)]) == 3 * padded
+    forward.free()
+    opt, _ = trainer.make_optimizer(model.parameters(), 1e-4, True)
+    step = trainer.compile_train_step(
+        model, opt, generator=torch.Generator(device=cuda).manual_seed(0))
+    y = torch.tensor([0, 1], device=cuda)
+    assert counted(lambda: [step(x, y, augment=True, image_size=64)
+                            for _ in range(2)]) == 2 * padded
+    step.free()

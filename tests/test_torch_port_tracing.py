@@ -260,12 +260,13 @@ def test_train_and_evaluate_clis_log_the_operator_line(tmp_path, caplog,
              if "graphs:" in r.getMessage()]
     assert len(lines) == 1
     assert re.fullmatch(r"Epoch 1 train graphs: 0 replays, 0 captures, 0 "
-                        r"evictions, - host ms a replay; prefetch [0-9.]+ "
-                        r"host ms a step", lines[0]), lines[0]
+                        r"evictions, - host ms a replay; ss2d.proj_padded "
+                        r"8 a step; prefetch [0-9.]+ host ms a step",
+                        lines[0]), lines[0]
     capsys.readouterr()
     evaluate_cli.main(["--checkpoint_path", out["last_path"], "--data_dir",
                        str(tmp_path), "--split", "val", "--image_size", "32",
                        "--device", "cpu", "--batch_size", "2"])
     err = capsys.readouterr().err
     assert ("evaluate graphs: 0 replays, 0 captures, 0 evictions, - host "
-            "ms a replay") in err
+            "ms a replay; ss2d.proj_padded 8 a step") in err
