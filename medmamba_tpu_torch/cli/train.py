@@ -19,8 +19,19 @@ batch (``train/trainer.py``), rank 0 alone writes the ``.pth`` files and
 ``class_indices.json``, every rank loads ``--resume``. Without torchrun no
 group is made and nothing changes.
 
+With ``--model jamba2_3b`` the CLI trains the causal language model of
+``models/jamba.py`` instead, on ``--token_npy``, a 2-D ``.npy`` array of
+token ids (one sequence a row): next-token cross-entropy, AdamW at
+``--lr`` (1e-4 by default) and decay 1e-4, ``--batch_size`` rows a step
+(2 by default), the step graphed on the card
+(``train/trainer.py: compile_lm_train_step``), ``--lm_config`` a JSON file
+of configuration keys over the published ones (the depth among them:
+``{"num_hidden_layers": 14}``); rank 0 writes ``<model_name>_last.pth``
+(the state dict and the configuration).
+
 Usage:
     python -m medmamba_tpu_torch.cli.train --train_dir D --val_dir D [options]
+    python -m medmamba_tpu_torch.cli.train --model jamba2_3b --token_npy F
     torchrun --nproc_per_node N -m medmamba_tpu_torch.cli.train ... (one
         rank a card)
 """
@@ -39,10 +50,23 @@ log = logging.getLogger("medmamba_tpu_torch.train")
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Train a Medmamba model "
                                             "(PyTorch port).")
+    p.add_argument("--model", type=str, default="medmamba",
+                   choices=["medmamba", "jamba2_3b"],
+                   help="medmamba: the VSSM of --medmb_size on image "
+                        "folders or NPZ; jamba2_3b: the language model on "
+                        "--token_npy")
     p.add_argument("--medmb_size", type=str, default="T",
                    choices=["T", "S", "B", "Te"])
-    p.add_argument("--train_dir", type=str, required=True)
-    p.add_argument("--val_dir", type=str, required=True)
+    p.add_argument("--train_dir", type=str, default=None,
+                   help="required with --model medmamba")
+    p.add_argument("--val_dir", type=str, default=None,
+                   help="required with --model medmamba")
+    p.add_argument("--token_npy", type=str, default=None,
+                   help="required with --model jamba2_3b: a 2-D .npy "
+                        "array of token ids, one sequence a row")
+    p.add_argument("--lm_config", type=str, default=None,
+                   help="a JSON file of language-model configuration keys "
+                        "over the published ones")
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--model_name", type=str, default="Medmamba")
     p.add_argument("--batch_size", type=int, default=None)
@@ -93,7 +117,13 @@ def parse_args(argv=None):
                    help="per-step progress line frequency (0 disables)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default) or cpu")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    need = (("token_npy",) if args.model != "medmamba"
+            else ("train_dir", "val_dir"))
+    missing = [f"--{n}" for n in need if getattr(args, n) is None]
+    if missing:
+        p.error(f"--model {args.model} requires {', '.join(missing)}")
+    return args
 
 
 def _step_profiler(out_dir: str, device):
@@ -130,9 +160,10 @@ def main(argv=None):
     device = resolve_device(args.device)
     owned = not dist.is_initialized()
     mesh = make_mesh(device=device)
+    train = _train if args.model == "medmamba" else _train_lm
     try:
-        return _train(args, rank_device(mesh) if mesh is not None
-                      else device, mesh)
+        return train(args, rank_device(mesh) if mesh is not None
+                     else device, mesh)
     finally:
         if owned:
             destroy_mesh()
@@ -379,6 +410,89 @@ def _train(args, device, mesh):
     written()
     return dict(best_path=best_path, last_path=last_path, best_acc=best_acc,
                 train_loss=avg_loss, img_s=ips, step_losses=step_losses)
+
+
+def _train_lm(args, device, mesh):
+    """Train the language model ``args.model`` on ``args.token_npy``.
+    Returns a dict: ``last_path``, ``step_losses`` (every step's global
+    loss in order), ``tokens_per_s`` of the last epoch."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from medmamba_tpu_torch.data.loader import device_prefetch
+    from medmamba_tpu_torch.models.registry import create_lm
+    from medmamba_tpu_torch.parallel.mesh import (data_group, process_slice,
+                                                  replicate_state)
+    from medmamba_tpu_torch.train.trainer import (compile_lm_train_step,
+                                                  lm_train_step,
+                                                  make_optimizer)
+    from medmamba_tpu_torch.utils import tracing
+
+    pi, pc = process_slice(mesh)
+    ids = np.load(args.token_npy, mmap_mode="r")
+    if ids.ndim != 2:
+        raise ValueError(f"{args.token_npy} holds a {ids.ndim}-D array; "
+                         "expected (sequences, tokens)")
+    batch = args.batch_size or 2
+    if batch % pc:
+        raise ValueError(f"--batch_size {batch} does not divide over {pc} "
+                         "ranks")
+    rows, steps = batch // pc, len(ids) // batch
+    config = None
+    if args.lm_config:
+        with open(args.lm_config) as f:
+            config = json.load(f)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = create_lm(args.model, config, dtype=dtype,
+                      generator=torch.Generator(device=device).manual_seed(
+                          args.seed), device=device)
+    opt, _ = make_optimizer(model.parameters(), args.lr or 1e-4,
+                            npz_mode=False)
+    replicate_state(model, opt, mesh)
+    if device.type == "cuda":
+        run = compile_lm_train_step(model, opt)
+    else:
+        def run(x):
+            return lm_train_step(model, opt, x)
+    epochs = args.epochs or 1
+    log.info("%s: %d sequences of %d tokens, %d steps an epoch of %d rows, "
+             "%d epochs, blocks in %s on %s", args.model, len(ids),
+             ids.shape[1], steps, batch, epochs, args.dtype, device)
+    rng = np.random.default_rng(args.seed)
+    step_losses, tps = [], None
+    for epoch in range(1, epochs + 1):
+        order = rng.permutation(len(ids))[:steps * batch]
+        mine = (torch.from_numpy(np.asarray(
+            ids[np.sort(order[s * batch + pi * rows:
+                              s * batch + (pi + 1) * rows])],
+            dtype=np.int64)) for s in range(steps))
+        feed = device_prefetch(((x,) for x in mine),
+                               lambda x: (x.to(device, non_blocking=True),),
+                               device=device)
+        before, t0 = tracing.snapshot(), time.time()
+        pending = deque()
+        for (x,) in feed:
+            pending.append(run(x).clone())
+            if len(pending) > 2:
+                step_losses.append(float(pending.popleft()))
+        step_losses.extend(float(x) for x in pending)
+        seconds = time.time() - t0
+        tps = steps * batch * ids.shape[1] / seconds if seconds else None
+        log.info("Epoch %d train loss %.4f; %s", epoch,
+                 np.mean(step_losses[-steps:]) if steps else float("nan"),
+                 tracing.summary(before, tracing.snapshot(), steps, seconds))
+    last_path = os.path.join(args.save_dir, f"{args.model_name}_last.pth")
+    if pi == 0:
+        os.makedirs(args.save_dir, exist_ok=True)
+        torch.save({"model_state_dict": model.state_dict(),
+                    "config": model.config}, last_path)
+    group = data_group(mesh)
+    if group is not None:
+        torch.distributed.barrier(group=group)
+    return dict(last_path=last_path, step_losses=step_losses,
+                tokens_per_s=tps)
 
 
 if __name__ == "__main__":

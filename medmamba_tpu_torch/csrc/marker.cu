@@ -15,7 +15,9 @@
   X(step, optimizer) X(step, end)                                          \
   X(forward, begin) X(forward, model) X(forward, end)                      \
   X(eval, begin) X(eval, end) X(cam, begin) X(cam, end)                    \
-  X(exported, begin) X(exported, end)
+  X(exported, begin) X(exported, end)                                     \
+  X(mixer, forward) X(mixer, backward) X(attention, forward)              \
+  X(attention, backward) X(mlp, forward) X(mlp, backward)
 
 #define MEDMAMBA_DEFINE(group, phase) \
   __global__ void medmamba_mark_##group##_##phase() {}

@@ -1,5 +1,6 @@
-"""Model size registry: T / S / B / Te (counterpart of
-``medmamba_tpu/models/registry.py``)."""
+"""Model registry: the VSSM sizes T / S / B / Te (counterpart of
+``medmamba_tpu/models/registry.py``) and the language models of
+``models/jamba.py`` by name (:func:`create_lm`)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -7,6 +8,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from medmamba_tpu_torch.models.jamba import Jamba
 from medmamba_tpu_torch.models.vssm import VSSM
 from medmamba_tpu_torch.utils.device import resolve_device
 
@@ -61,3 +63,49 @@ def medmamba_b(num_classes=1000, **kw):
 
 def medmamba_te(num_classes=1000, **kw):
     return create_model("Te", num_classes, **kw)
+
+
+# AI21-Jamba2-3B's config.json
+# (https://huggingface.co/ai21labs/AI21-Jamba2-3B/blob/main/config.json),
+# the keys that set its shape
+JAMBA2_3B = {
+    "attn_layer_offset": 7, "attn_layer_period": 14,
+    "expert_layer_offset": 1, "expert_layer_period": 2,
+    "hidden_act": "silu", "hidden_size": 2560, "intermediate_size": 8192,
+    "mamba_conv_bias": True, "mamba_d_conv": 4, "mamba_d_state": 16,
+    "mamba_dt_rank": 160, "mamba_expand": 2, "mamba_proj_bias": False,
+    "num_attention_heads": 20, "num_experts": 1, "num_experts_per_tok": 1,
+    "num_hidden_layers": 28, "num_key_value_heads": 1,
+    "rms_norm_eps": 1e-6, "tie_word_embeddings": True, "vocab_size": 65536,
+}
+LM_CONFIGS = {"jamba2_3b": JAMBA2_3B}
+
+
+def lm_config(name: str = "jamba2_3b", config: Optional[dict] = None, *,
+              num_hidden_layers: Optional[int] = None) -> dict:
+    """The configuration of the language model ``name``, with the keys of
+    ``config`` over it and, where given, ``num_hidden_layers``."""
+    if name not in LM_CONFIGS:
+        raise ValueError(f"unknown language model {name!r}; known: "
+                         f"{sorted(LM_CONFIGS)}")
+    cfg = {**LM_CONFIGS[name], **(config or {})}
+    if num_hidden_layers is not None:
+        cfg["num_hidden_layers"] = num_hidden_layers
+    return cfg
+
+
+def create_lm(name: str = "jamba2_3b", config: Optional[dict] = None, *,
+              num_hidden_layers: Optional[int] = None, dtype=torch.float32,
+              generator: Optional[torch.Generator] = None, device="cuda",
+              init: bool = True) -> Jamba:
+    """Build the language model ``name`` (:func:`lm_config`'s
+    configuration) on ``device``, its parameters drawn from ``generator``
+    (on ``device``) with the published initialisation; with ``init``
+    False they are left unset, for a state dict to fill. ``dtype`` is the
+    block dtype (parameters stay float32)."""
+    dev = resolve_device(device)
+    cfg = lm_config(name, config, num_hidden_layers=num_hidden_layers)
+    with torch.device("meta"):
+        model = Jamba(cfg, dtype=dtype)
+    model = model.to_empty(device=dev)
+    return model.reset_parameters(generator) if init else model

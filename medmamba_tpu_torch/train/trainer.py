@@ -15,6 +15,9 @@ choices (train.py:187-199):
 One step: on-device preprocessing (flip + rotation when augmenting, resize,
 normalisation) -> forward in train mode -> loss -> backward -> AdamW. The
 random draws (augmentation, DropPath) come from the caller's generator.
+:func:`lm_train_step` is the same step for a causal language model on
+token ids (``models/jamba.py``): no preprocessing and no draws, the
+next-token loss, the same backward, exchange and AdamW.
 On the card each phase opens with a marker kernel (``utils/tracing.py:
 mark``): ``step.begin``, ``step.forward``, ``step.backward``,
 ``step.exchange`` (under a data group), ``step.optimizer``, ``step.end``;
@@ -164,7 +167,14 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                    generator=generator, rows=rows)
     tracing.mark("step.forward", x)
     logits = model(x, labels >= 0, generator=generator, rows=rows)
-    loss = cross_entropy(logits, labels, group)
+    return _update(opt, cross_entropy(logits, labels, group), group)
+
+
+def _update(opt: torch.optim.Optimizer, loss: torch.Tensor,
+            group) -> torch.Tensor:
+    """The end of a train step from its loss: the backward, under a data
+    ``group`` the exchange of :func:`sum_grads`, and the optimizer's step.
+    Returns the (global batch's) loss, detached."""
     opt.zero_grad(set_to_none=True)
     tracing.mark("step.backward", loss)
     loss.backward()
@@ -177,6 +187,33 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     opt.step()
     tracing.mark("step.end", loss)
     return loss
+
+
+def next_token_labels(ids: torch.Tensor) -> torch.Tensor:
+    """The targets of a causal language model on (b, L) token ids: each
+    position's next id, and -1 (no target) at the last position."""
+    return torch.cat([ids[:, 1:], torch.full_like(ids[:, :1], -1)], dim=1)
+
+
+def lm_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                  ids: torch.Tensor) -> torch.Tensor:
+    """One step of a causal language model (``models/jamba.py``) on (b, L)
+    int token ids on the model's device (under a mesh: this rank's rows of
+    the global batch): the forward, the next-token cross-entropy over every
+    position but each row's last (:func:`cross_entropy`, so under a mesh
+    the global batch's mean), the backward and AdamW, as
+    :func:`train_step` ends. Counts ``lm.tokens``. Returns the (global
+    batch's) loss as a device scalar (no host sync)."""
+    model.train()
+    group = data_group()
+    tracing.mark("step.begin", ids)
+    tracing.count("lm.tokens", ids.numel())
+    labels = next_token_labels(ids)
+    tracing.mark("step.forward", ids)
+    logits = model(ids)
+    loss = cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         labels.reshape(-1), group)
+    return _update(opt, loss, group)
 
 
 @torch.no_grad()
@@ -267,6 +304,24 @@ def compile_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer, *,
                             generators=[generator])
     return graphs.CompiledStep(
         "train_step", capture,
+        free=lambda: opt.zero_grad(set_to_none=True))
+
+
+def compile_lm_train_step(model: torch.nn.Module,
+                          opt: torch.optim.Optimizer) -> graphs.CompiledStep:
+    """:func:`lm_train_step` as CUDA graphs, as :func:`compile_train_step`
+    captures the image step: ``step(ids)`` (on the host or the card) gives
+    the loss, a device scalar that the next call overwrites. The forward,
+    the loss, the backward and AdamW are one graph; the warm-up's effects
+    on the model and the optimizer are undone, so the first replay is the
+    first training step."""
+    def capture(ids):
+        restore = _snapshot(model, opt)
+        return graphs.Graph(lambda x: lm_train_step(model, opt, x), (ids,),
+                            label="lm train step", model=model, opt=opt,
+                            restore=restore)
+    return graphs.CompiledStep(
+        "lm_train_step", capture,
         free=lambda: opt.zero_grad(set_to_none=True))
 
 

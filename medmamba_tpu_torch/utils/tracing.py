@@ -42,7 +42,9 @@ MARKERS = ("step.begin", "step.forward", "step.backward", "step.exchange",
            "step.optimizer", "step.end",
            "forward.begin", "forward.model", "forward.end",
            "eval.begin", "eval.end", "cam.begin", "cam.end",
-           "exported.begin", "exported.end")
+           "exported.begin", "exported.end",
+           "mixer.forward", "mixer.backward", "attention.forward",
+           "attention.backward", "mlp.forward", "mlp.backward")
 _INDEX = {name: i for i, name in enumerate(MARKERS)}
 
 _RecordFunctionFast = torch._C._profiler._RecordFunctionFast
@@ -55,8 +57,9 @@ _counters: Dict[str, float] = {}
 # capture's counts of these and adds them at each replay, as
 # ``utils/graphs.py`` does with the launch counters. ``ss2d.proj_padded``:
 # SS2D forwards whose dt rank was padded (``models/vssm.py:
-# ss2d_projections``)
-STEP_COUNTERS = ("ss2d.proj_padded",)
+# ss2d_projections``); ``lm.tokens``: tokens a language model's train step
+# took in (``train/trainer.py: lm_train_step``)
+STEP_COUNTERS = ("ss2d.proj_padded", "lm.tokens")
 
 
 class span:
@@ -128,12 +131,15 @@ def reset() -> None:
     _counters.clear()
 
 
-def summary(before: dict, after: dict, steps: int) -> str:
+def summary(before: dict, after: dict, steps: int,
+            seconds: Optional[float] = None) -> str:
     """The operator's line for what ran between two snapshots: graph
     replays, captures and evictions, host ms a replay in ``graph.call``
     spans (less the captures' ``graph.capture``), where SS2D padded its
-    projections their count a step (``ss2d.proj_padded``), and, where
-    batches were prefetched, host ms a step in the prefetch's spans."""
+    projections their count a step (``ss2d.proj_padded``), where a
+    language model trained the tokens it took in a second over
+    ``seconds`` (``lm.tokens``), and, where batches were prefetched, host
+    ms a step in the prefetch's spans."""
     def delta(name, key):
         return (after["spans"].get(name, {}).get(key, 0)
                 - before["spans"].get(name, {}).get(key, 0))
@@ -151,6 +157,9 @@ def summary(before: dict, after: dict, steps: int) -> str:
     padded = counter("ss2d.proj_padded")
     if steps and padded:
         line += f"; ss2d.proj_padded {padded / steps:g} a step"
+    tokens = counter("lm.tokens")
+    if tokens and seconds:
+        line += f"; {tokens / seconds:.1f} tokens/s"
     prefetch = ("prefetch.put", "prefetch.hand")
     if steps and any(delta(n, "count") for n in prefetch):
         host = sum(delta(n, "s") for n in prefetch)
@@ -161,6 +170,31 @@ def summary(before: dict, after: dict, steps: int) -> str:
 def kernel_name(marker: str) -> str:
     """The kernel of a marker, as the profiler names it."""
     return f"medmamba_mark_{marker.replace('.', '_')}()"
+
+
+class _MarkBackward(torch.autograd.Function):
+    """The identity, whose backward launches a marker on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, name):
+        ctx.name = name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mark(ctx.name, g)
+        return g, None
+
+
+def mark_backward(name: str, x: torch.Tensor) -> torch.Tensor:
+    """``x``, through an identity whose backward launches the marker
+    ``name`` when the gradient reaches ``x``: placed on a layer's output,
+    it marks the start of that layer's backward. ``x`` itself where no
+    gradient flows or the marker would not launch (see :func:`mark`)."""
+    if not (torch.is_grad_enabled() and x.requires_grad) or x.device.type \
+            != "cuda" or _traced():
+        return x
+    return _MarkBackward.apply(x, name)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
